@@ -1,0 +1,56 @@
+"""Kant's core, ported: cluster model, QSCH, RSCH, plugin framework and
+simulator, with the Level-2 filter+score pass on a CUDA device.
+
+Same layout and names as ``repro.core``.  Host bookkeeping stays numpy;
+the device seam is :func:`repro_torch.core.scoring.compute_node_scores`
+and :func:`~repro_torch.core.scoring.compute_node_scores_and_slots`,
+which RSCH calls for every ``score_backend`` other than ``"np"``.
+Dynamics, elastic training, federation, self-tuning, cycle pipelining
+and the contrib plugins have no port yet.
+"""
+
+from .bridge import state_from_arrays
+from .cluster import ClusterState
+from .events import Event, EventBus, EventKind
+from .framework import (CycleResult, PlacementPass, ProfileSet,
+                        SchedulingProfile, default_profiles)
+from .job import (Job, JobKind, JobState, Placement, PodPlacement,
+                  PRIO_HIGH, PRIO_LOW, PRIO_NORMAL, size_bucket)
+from .metrics import MetricsRecorder, waiting_percentile
+from .qsch import QSCH, QSCHConfig, QueuePolicy
+from .quota import QuotaManager, QuotaMode
+from .rsch import RSCH, RSCHConfig, Strategy, profiles_from_config
+from .scoring import (BINPACK, E_BINPACK, E_SPREAD, SPREAD, ScoreWeights,
+                      combine_weights, compute_node_scores,
+                      compute_node_scores_and_slots, node_scores_np,
+                      select_gang_slots)
+from .simulator import SimConfig, Simulator, SimResult
+from .snapshot import (FullSnapshotter, IncrementalSnapshotter, Snapshot,
+                       snapshots_equal)
+from .topology import ClusterTopology, small_topology, \
+    training_cluster_topology
+from .workload import (DEFAULT_QUERY_CLASSES, QueryClass, ServeRequest,
+                       backfill_training_trace, diurnal_demand,
+                       inference_trace, request_trace, trace_stats,
+                       training_trace)
+
+__all__ = [
+    "state_from_arrays",
+    "ClusterState", "Job", "JobKind", "JobState", "Placement",
+    "PodPlacement", "PRIO_HIGH", "PRIO_LOW", "PRIO_NORMAL", "size_bucket",
+    "MetricsRecorder", "waiting_percentile",
+    "QSCH", "QSCHConfig", "QueuePolicy", "QuotaManager",
+    "QuotaMode", "RSCH", "RSCHConfig", "Strategy", "BINPACK", "E_BINPACK",
+    "E_SPREAD", "SPREAD", "ScoreWeights", "combine_weights",
+    "compute_node_scores", "compute_node_scores_and_slots",
+    "node_scores_np", "select_gang_slots",
+    "SimConfig", "Simulator", "SimResult", "FullSnapshotter",
+    "IncrementalSnapshotter", "Snapshot", "snapshots_equal",
+    "ClusterTopology", "small_topology", "training_cluster_topology",
+    "backfill_training_trace", "diurnal_demand", "inference_trace",
+    "trace_stats", "training_trace", "QueryClass", "ServeRequest",
+    "DEFAULT_QUERY_CLASSES", "request_trace",
+    "Event", "EventBus", "EventKind",
+    "CycleResult", "PlacementPass", "ProfileSet", "SchedulingProfile",
+    "default_profiles", "profiles_from_config",
+]
