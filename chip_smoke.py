@@ -1,17 +1,19 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch/CUDA port (``src/repro_torch``).
 
-Drives the port's scheduling cycle on one CUDA card and holds every
-kernel of that path against its plain torch version::
+Drives the port's main paths on one CUDA card — the scheduling cycle and
+rwkv6-3b serving — and holds every kernel of those paths against its
+plain torch version::
 
     python3 chip_smoke.py
 
 Phases, each printed as one JSON line on stdout:
 
 1. device  — ``nvidia-smi`` name and power limit;
-2. build   — ``nvcc`` build of ``kernels/csrc/node_score.cu`` for sm_90a;
-3. sweep   — both kernels against the plain torch version on the card
-             and the host numpy path, as int32 bit patterns;
+2. build   — ``nvcc`` builds of ``kernels/csrc/node_score.cu`` and
+             ``kernels/csrc/wkv6.cu`` for sm_90a, started together;
+3. sweep   — both node-score kernels against the plain torch version on
+             the card and the host numpy path, as int32 bit patterns;
 4. main    — the paper's §5.1 run (1,000 nodes × 8 GPUs, 1,000-job
              training trace at 300 jobs/h, Backfill + E-Binpack) through
              ``Simulator.run`` on the card, with ``device="cpu"`` and with
@@ -21,7 +23,18 @@ Phases, each printed as one JSON line on stdout:
 5. per-pod — the per-pod path (``batched_gang=False``) at 10k nodes: it
              launches the score-only kernel, placements equal batched;
 6. scale   — one 64-pod × 8-GPU gang cycle at 10k / 100k / 1M nodes with
-             subset scoring on and off (off = full-width kernel sweep).
+             subset scoring on and off (off = full-width kernel sweep);
+7. wkv-sweep    — the WKV kernel against its plain version at the
+             reference's test shapes, at T ∈ {1, 37, 513} and at the
+             serve shape, with f32, bf16 and mixed stream types;
+8. serve        — rwkv6-3b at full width (f32, seeded weights) behind a
+             ``ServeEngine(batch_size=4)``: 8 requests of 64–512 prompt
+             tokens, 16 new tokens each; the WKV kernel runs once per
+             layer per prefill; then a profiled prefill and decode step
+             split their wall time into device busy time and the rest;
+9. serve-parity — solo prefills of the first two prompts with the WKV
+             kernel and with the plain step loop: logits, states and
+             greedy tokens agree.
 
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failed check raises and
@@ -48,6 +61,18 @@ SIZES = (1, 31, 32, 8193, 1_048_576)
 SCALE_SIZES = (10_000, 100_000, 1_000_000)
 GANG_PODS, GPUS_PER_POD = 64, 8
 DEVICE = "cuda"
+# WKV-6: the reference's kernel-test shapes (tests/test_kernels.py), long
+# sequences at the model's head size, and the serve shape (B=1 prefill of
+# a 512-token prompt, 40 heads of 64).
+WKV_REF_SHAPES = ((1, 16, 1, 8), (2, 32, 3, 8), (2, 64, 2, 16), (3, 48, 5, 4))
+WKV_LONG_SHAPES = ((2, 1, 4, 64), (2, 37, 4, 64), (2, 513, 4, 64))
+WKV_SERVE_SHAPE = (1, 512, 40, 64)
+WKV_TOL_F32 = 1e-5      # the reference's own, f32 inputs
+WKV_TOL_BF16 = 3e-2     # the reference's own, bf16 inputs
+WKV_TOL_LONG = 1e-4     # max|Δ| / max|o_ref| at T = 513 and the serve shape
+SERVE_ARCH = "rwkv6-3b"
+SERVE_REQUESTS, SERVE_BATCH, SERVE_NEW = 8, 4, 16
+PARITY_TOL = 1e-3       # kernel against plain scan, relative to max|x|
 
 
 def emit(obj) -> None:
@@ -166,24 +191,64 @@ class CallRecorder:
 def device_busy_ms(torch, run) -> dict:
     """Device time by kind over ``run()`` from ``torch.profiler``:
     kernels vs memory copies, in ms (0 where the trace has no device
-    events)."""
+    events), and the five device entries that took longest."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
     kernel = copy = 0.0
+    entries = []
     for e in prof.key_averages():
         if "CUDA" not in str(e.device_type):
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = e.self_cuda_time_total
+        entries.append((us / 1e3, e.count, e.key[:80]))
         if "memcpy" in e.key.lower() or "memset" in e.key.lower():
             copy += us / 1e3
         else:
             kernel += us / 1e3
-    return {"kernel_ms": kernel, "copy_ms": copy}
+    top = [{"name": k, "ms": ms, "count": n}
+           for ms, n, k in sorted(entries, reverse=True)[:5]]
+    return {"kernel_ms": kernel, "copy_ms": copy, "top": top}
+
+
+def wkv_inputs(np, torch, shape, types, seed: int = 0):
+    """WKV inputs on the card in the distributions of the reference's
+    kernel tests: r, k, v ~ N(0, 1)/2, w = sigmoid(N(0, 1)), u ~ N/2,
+    s0 ~ N/10; the streams cast to ``types``."""
+    B, T, H, n = shape
+    rng = np.random.default_rng(seed)
+    r, k, v = (rng.standard_normal((B, T, H, n)) * 0.5 for _ in range(3))
+    w = 1.0 / (1.0 + np.exp(-rng.standard_normal((B, T, H, n))))
+    u = rng.standard_normal((H, n)) * 0.5
+    s0 = rng.standard_normal((B, H, n, n)) * 0.1
+
+    def dev(a, dtype=torch.float32):
+        return torch.from_numpy(a.astype(np.float32)).to(DEVICE).to(dtype)
+    return (*(dev(a, t) for a, t in zip((r, k, v, w), types)), dev(u),
+            dev(s0))
+
+
+def wkv_bound_ms(shape, stream_bytes: int) -> tuple:
+    """Least time for one WKV pass: each input read once (four streams,
+    u, s0) and each output written once (o, S_T) over the HBM rate, vs
+    B·T·H·(4n² + 3n) f32 operations over the f32 peak."""
+    B, T, H, n = shape
+    nbytes = B * T * H * n * (stream_bytes + 4) + H * n * 4 \
+        + 2 * B * H * n * n * 4
+    ops = B * T * H * (4 * n * n + 3 * n)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def rel_err(a, b) -> float:
+    """max|a - b| / max|b| (0 when b is all zero)."""
+    den = float(b.abs().max())
+    return float((a - b).abs().max()) / den if den else 0.0
 
 
 def main() -> int:
@@ -196,9 +261,12 @@ def main() -> int:
 
     import repro_torch.core as core
     from repro_torch.core.snapshot import FullSnapshotter
-    from repro_torch.kernels import node_score, ops
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import node_score, ops, wkv6
     from repro_torch.kernels.ref import (node_scores_ref,
-                                         node_scores_slots_ref)
+                                         node_scores_slots_ref, wkv6_ref)
+    from repro_torch.models import Model
+    from repro_torch.serve import Request, ServeEngine
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -208,10 +276,18 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "name": torch.cuda.get_device_name(0)})
 
-    # -- 2. build ------------------------------------------------------
-    node_score.build()
+    # -- 2. build: one nvcc per source, all started together -----------
+    from concurrent.futures import ThreadPoolExecutor
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        for fut in [pool.submit(node_score.build), pool.submit(wkv6.build)]:
+            fut.result()
     emit({"phase": "build", "seconds": node_score.build_seconds,
-          "flags": " ".join(node_score.NVCC_FLAGS)})
+          "flags": " ".join(node_score.NVCC_FLAGS),
+          "wkv6": {"seconds": wkv6.build_seconds,
+                   "flags": " ".join(wkv6.NVCC_FLAGS),
+                   "ptxas": wkv6.build_log},
+          "wall_s": time.perf_counter() - t0})
 
     # -- 3. sweep: kernel vs plain version, bit patterns ------------------
     weight_sets = {"BINPACK": core.BINPACK, "E_BINPACK": core.E_BINPACK,
@@ -389,6 +465,192 @@ def main() -> int:
             emit({"phase": "scale", **scale[-1]})
             full_cols, full_kw = cols, kw
 
+    # -- 7. wkv-sweep: the WKV kernel against its plain version ---------
+    f32, bf16 = torch.float32, torch.bfloat16
+    wkv_types = {"f32": (f32,) * 4, "bf16": (bf16,) * 4,
+                 "mixed": (bf16, bf16, bf16, f32)}
+    sweep, t0 = [], time.perf_counter()
+    for group, shapes in (("reference", WKV_REF_SHAPES),
+                          ("long", WKV_LONG_SHAPES),
+                          ("serve", (WKV_SERVE_SHAPE,))):
+        for shape in shapes:
+            for tname, types in wkv_types.items():
+                args = wkv_inputs(np, torch, shape, types)
+                o, sT = wkv6.wkv6(*args)
+                po, psT = wkv6_ref(*args)
+                torch.cuda.synchronize()
+                abs_err = max(float((o - po).abs().max()),
+                              float((sT - psT).abs().max()))
+                rel = max(rel_err(o, po), rel_err(sT, psT))
+                if group == "reference":
+                    tol = WKV_TOL_F32 if tname == "f32" else WKV_TOL_BF16
+                    ok = all(torch.allclose(a, b, atol=tol, rtol=tol)
+                             for a, b in ((o, po), (sT, psT)))
+                else:
+                    tol = WKV_TOL_LONG
+                    ok = rel <= tol
+                sweep.append({"group": group, "shape": shape,
+                              "types": tname, "max_abs_err": abs_err,
+                              "max_rel_err": rel, "tol": tol, "ok": ok})
+    emit({"phase": "wkv-sweep", "cases": sweep,
+          "worst_abs_err": max(c["max_abs_err"] for c in sweep),
+          "worst_rel_err": max(c["max_rel_err"] for c in sweep),
+          "seconds": time.perf_counter() - t0})
+    bad = [c for c in sweep if not c["ok"]]
+    check(not bad, f"wkv6 kernel disagrees with its plain version: {bad}")
+
+    # -- 8. serve: rwkv6-3b at full width behind the ServeEngine -------
+    cfg = get_arch(SERVE_ARCH)
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(0), torch.float32)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    params = model.state_dict()
+    n_params = model.n_params()
+    param_bytes = sum(t.numel() * t.element_size() for t in params.values())
+    rng = np.random.default_rng(0)
+    lens = rng.integers(64, 513, size=SERVE_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab, size=int(n)).astype(np.int32)
+               for n in lens]
+
+    def engine_run(reqs, timings=None):
+        eng = ServeEngine(cfg, params, batch_size=SERVE_BATCH,
+                          max_seq=1024, device=dev)
+        if timings is not None:
+            for name in ("_prefill", "_decode"):
+                setattr(eng, name, timed(getattr(eng, name),
+                                         timings[name]))
+        for uid, (prompt, new) in enumerate(reqs):
+            eng.submit(Request(uid=uid, prompt=prompt, max_new_tokens=new))
+        t = time.perf_counter()
+        done = eng.run_until_drained()
+        torch.cuda.synchronize()
+        return eng, done, time.perf_counter() - t
+
+    def timed(fn, log):
+        """``fn`` with a synchronised wall clock around each call, and a
+        check that the logits it returns are finite."""
+        def wrapped(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits, cache = fn(*args)
+            torch.cuda.synchronize()
+            log.append((time.perf_counter() - t,
+                        bool(torch.isfinite(logits).all())))
+            return logits, cache
+        return wrapped
+
+    engine_run([(prompts[0][:64], 2), (prompts[1][:64], 2)])   # warm-up
+    timings = {"_prefill": [], "_decode": []}
+    node_score.node_scores.launches = 0
+    node_score.node_scores_slots.launches = 0
+    wkv6.wkv6.launches = 0
+    engine, finished, serve_wall = engine_run(
+        [(p, SERVE_NEW) for p in prompts], timings)
+    serve_launches = {"wkv6": wkv6.wkv6.launches,
+                      "node_scores": node_score.node_scores.launches,
+                      "node_scores_slots":
+                          node_score.node_scores_slots.launches}
+    check(engine.prefill_calls > 0 and serve_launches["wkv6"] > 0,
+          f"serve path never launched the WKV kernel: {serve_launches}")
+    check(serve_launches["wkv6"] == cfg.n_layers * engine.prefill_calls,
+          f"wkv6 launches {serve_launches['wkv6']} != {cfg.n_layers} x "
+          f"{engine.prefill_calls} prefills")
+    check(len(finished) == SERVE_REQUESTS
+          and all(len(r.generated) == SERVE_NEW for r in finished),
+          "serve left requests unfinished")
+    check(all(ok for log in timings.values() for _, ok in log),
+          "serve produced non-finite logits")
+    pre_s = [s for s, _ in timings["_prefill"]]
+    dec_s = [s for s, _ in timings["_decode"]]
+    emit({"phase": "serve", "arch": SERVE_ARCH, "dtype": "float32",
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "params": n_params, "param_bytes": param_bytes,
+          "init_s": init_s, "requests": len(finished),
+          "prompt_tokens": int(lens.sum()),
+          "prompt_lens": [int(n) for n in lens],
+          "prefill_calls": engine.prefill_calls,
+          "prefill_ms_per_request": float(np.mean(pre_s)) * 1e3,
+          "prefill_tokens_per_s": float(lens.sum()) / sum(pre_s),
+          "decode_steps": len(dec_s), "decode_batch": SERVE_BATCH,
+          "decode_ms_per_step_median": float(np.median(dec_s)) * 1e3,
+          "decode_ms_per_step_mean": float(np.mean(dec_s)) * 1e3,
+          "wall_s": serve_wall, "launches": serve_launches,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+
+    # -- 8b. where a prefill's and a decode step's time goes -----------
+    # Profiled separately; the wall times are the unprofiled ones above
+    # (the first prefill is prompts[0]'s).
+    pre_busy = device_busy_ms(torch, lambda: engine.model.prefill(
+        {"tokens": torch.from_numpy(prompts[0][None])}))
+    dec_busy = device_busy_ms(torch, lambda: engine.model.decode_step(
+        engine.cache, torch.zeros(SERVE_BATCH, dtype=torch.int32)))
+    pre_wall_ms = pre_s[0] * 1e3
+    dec_wall_ms = float(np.median(dec_s)) * 1e3
+    emit({"phase": "serve-breakdown",
+          "prefill": {"prompt_len": len(prompts[0]),
+                      "wall_ms": pre_wall_ms, **pre_busy,
+                      "busy_share": (pre_busy["kernel_ms"]
+                                     + pre_busy["copy_ms"]) / pre_wall_ms},
+          "decode": {"batch": SERVE_BATCH, "wall_ms": dec_wall_ms,
+                     **dec_busy,
+                     "busy_share": (dec_busy["kernel_ms"]
+                                    + dec_busy["copy_ms"]) / dec_wall_ms}})
+
+    # -- 9. serve-parity: WKV kernel against the plain step loop -------
+    kern_model = engine.model
+    scan_model = Model(cfg, device=dev, wkv_backend="scan")
+    scan_model.load_state_dict(params, assign=True)
+
+    def top2_gap(logits) -> float:
+        top = torch.topk(logits.float(), 2).values
+        return float(top[0] - top[1])
+
+    parity = []
+    for prompt in prompts[:2]:
+        batch = {"tokens": torch.from_numpy(prompt[None])}
+        t = time.perf_counter()
+        lk, ck = kern_model.prefill(batch)
+        torch.cuda.synchronize()
+        k_s = time.perf_counter() - t
+        t = time.perf_counter()
+        ls, cs = scan_model.prefill(batch)
+        torch.cuda.synchronize()
+        s_s = time.perf_counter() - t
+        logit_rel = rel_err(lk, ls)
+        state_rel = max(rel_err(ck["layers"]["state"][i],
+                                cs["layers"]["state"][i])
+                        for i in range(cfg.n_layers))
+        xlast_rel = max(rel_err(ck["layers"][key], cs["layers"][key])
+                        for key in ("x_last_t", "x_last_c"))
+        check(max(logit_rel, state_rel, xlast_rel) <= PARITY_TOL,
+              f"kernel prefill differs from scan: logits {logit_rel}, "
+              f"states {state_rel}, x_last {xlast_rel}")
+        toks_k, toks_s, first_diff, gap = [], [], None, None
+        for step in range(SERVE_NEW):
+            tk, ts = int(torch.argmax(lk[0])), int(torch.argmax(ls[0]))
+            toks_k.append(tk)
+            toks_s.append(ts)
+            if tk != ts:
+                first_diff = step
+                gap = top2_gap(ls[0]) / float(ls[0].abs().max())
+                check(gap < PARITY_TOL,
+                      f"greedy tokens differ at step {step} with a scan "
+                      f"top-2 gap of {gap} of max|logit|")
+                break
+            tok = torch.tensor([tk], dtype=torch.int32)
+            lk, ck = kern_model.decode_step(ck, tok)
+            ls, cs = scan_model.decode_step(cs, tok)
+        parity.append({"prompt_len": len(prompt), "logit_rel": logit_rel,
+                       "state_rel": state_rel, "x_last_rel": xlast_rel,
+                       "tokens_equal": first_diff is None,
+                       "first_diff_step": first_diff,
+                       "scan_top2_gap_rel": gap,
+                       "prefill_s_kernel": k_s, "prefill_s_scan": s_s})
+    emit({"phase": "serve-parity", "tol": PARITY_TOL, "cases": parity})
+    del scan_model, kern_model, engine, model, params
+
     # -- kernels line: timed at the 1M-node full-width pass ------------
     full = scale[-1]
     n1m = full["nodes_scored"]
@@ -419,9 +681,26 @@ def main() -> int:
          "ms": k_score, "plain_ms": p_score, "bound_ms": b_score,
          "bound_by": by_score, "library_ms": None, "nodes": n1m},
     ]
+    args = wkv_inputs(np, torch, WKV_SERVE_SHAPE, (torch.float32,) * 4)
+    w_ms = device_ms(torch, lambda: wkv6.wkv6(*args), 20, flush)
+    w_plain = device_ms(torch, lambda: wkv6_ref(*args), 3, flush)
+    w_bound, w_by = wkv_bound_ms(WKV_SERVE_SHAPE, 4 * 4)
+    kernels.append(
+        {"name": "wkv6", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/wkv6.cu",
+         "replaces": "src/repro/kernels/wkv6.py:47",
+         "launches": serve_launches["wkv6"],
+         "launches_path": f"serve: {SERVE_REQUESTS} requests, "
+                          f"{SERVE_ARCH} full width",
+         "max_abs_err": max(c["max_abs_err"] for c in sweep),
+         "max_rel_err": max(c["max_rel_err"] for c in sweep),
+         "ms": w_ms, "plain_ms": w_plain, "bound_ms": w_bound,
+         "bound_by": w_by, "library_ms": None,
+         "shape": WKV_SERVE_SHAPE, "types": "f32"})
     print(json.dumps({"kernels": kernels,
                       "library_note": "no single PyTorch call computes the "
-                                      "fused filter+score(+slots) pass"}),
+                                      "fused filter+score(+slots) pass or "
+                                      "the WKV recurrence"}),
           flush=True)
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,0 +1,65 @@
+"""Registry mapping ``--arch <id>`` to configs, plus input construction.
+
+``make_inputs`` builds small concrete batches for smoke tests, drawing
+tokens from the same ``np.random.default_rng(seed)`` stream as the
+reference package's ``configs/registry.py``, so the tokens are
+identical.  The vlm and encdec stub embeddings come from ``jax.random``
+there; they raise ``NotImplementedError`` here until those families are
+ported.  ``input_specs`` (the dry-run's shape stand-ins) waits for the
+launch slice.
+"""
+
+from __future__ import annotations
+
+import importlib
+from typing import Dict
+
+import numpy as np
+import torch
+
+from .base import ArchConfig
+
+_MODULES: Dict[str, str] = {
+    "mistral-large-123b": "mistral_large_123b",
+    "glm4-9b": "glm4_9b",
+    "mixtral-8x7b": "mixtral_8x7b",
+    "codeqwen1.5-7b": "codeqwen1_5_7b",
+    "seamless-m4t-large-v2": "seamless_m4t_large_v2",
+    "hymba-1.5b": "hymba_1_5b",
+    "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
+    "granite-20b": "granite_20b",
+    "rwkv6-3b": "rwkv6_3b",
+    "llava-next-34b": "llava_next_34b",
+}
+
+ARCH_IDS = tuple(_MODULES)
+
+
+def get_arch(arch_id: str, smoke: bool = False) -> ArchConfig:
+    if arch_id not in _MODULES:
+        raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
+    mod = importlib.import_module(f".{_MODULES[arch_id]}", __package__)
+    return mod.SMOKE if smoke else mod.FULL
+
+
+def make_inputs(cfg: ArchConfig, *, batch: int, seq: int,
+                kind: str = "train", seed: int = 0
+                ) -> Dict[str, torch.Tensor]:
+    """Small concrete batches (int32 CPU tensors) for smoke tests and
+    examples."""
+    rng = np.random.default_rng(seed)
+
+    def tokens(shape):
+        return torch.from_numpy(
+            rng.integers(0, cfg.vocab, size=shape).astype(np.int32))
+
+    if kind == "decode":
+        return {"token": tokens((batch,))}
+    if cfg.family in ("vlm", "encdec"):
+        raise NotImplementedError(
+            f"{cfg.family} stub embeddings are not ported yet (ROADMAP "
+            f"queue 1, item 5)")
+    out = {"tokens": tokens((batch, seq))}
+    if kind == "train":
+        out["labels"] = tokens(tuple(out["tokens"].shape))
+    return out

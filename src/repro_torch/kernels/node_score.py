@@ -18,23 +18,14 @@ nothing else.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 import time
 from typing import Optional, Tuple
 
 import torch
 
+from . import _build
 from .ref import node_scores_ref, node_scores_slots_ref
 
-_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
-                     "node_score.cu")
-_REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))))
-BUILD_DIR = os.path.join(_REPO, "build", "repro_torch_kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
@@ -42,46 +33,14 @@ _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc")
-    if path is None:
-        home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-        path = os.path.join(home, "bin", "nvcc")
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
-                           "build repro_torch's kernels")
-    return path
-
-
 def build() -> ctypes.CDLL:
-    """Compile (once per source and flags) and load the kernel library.
-
-    The library's file name carries a hash of the source and flags, and
-    is written under a temporary name then renamed, so two processes
-    building at once never load a half-written file."""
+    """Compile (once per source and flags) and load the kernel library
+    (:func:`._build.load`)."""
     global _lib, build_seconds
     if _lib is not None:
         return _lib
-    with open(_CSRC, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()
-                                ).hexdigest()[:16]
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    so = os.path.join(BUILD_DIR, f"libnode_score_{digest}.so")
     t0 = time.perf_counter()
-    if not os.path.exists(so):
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        try:
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, _CSRC],
-                                  capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                                   f"{proc.stderr}")
-            os.replace(tmp, so)
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-    lib = ctypes.CDLL(so)
+    lib, _ = _build.load("node_score.cu", NVCC_FLAGS)
     ptr, i64, i32, f32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32,
                           ctypes.c_float)
     lib.node_scores_launch.argtypes = [ptr] * 6 + [i64, i32] + [f32] * 5 + [

@@ -1,14 +1,14 @@
-"""Public entry points of the node-scoring kernels.
+"""Public entry points of the port's kernels.
 
 Same API as the reference package's ``kernels/ops.py``: ``node_scores``,
-``node_scores_and_slots``, ``gang_slot_prefilter``, ``gang_slot_topk``
-and ``best_node``.  Inputs are 1-D torch tensors (numpy arrays are taken
-as CPU tensors); there is no padding to tiles.
+``node_scores_and_slots``, ``gang_slot_prefilter``, ``gang_slot_topk``,
+``best_node`` and ``wkv6``.  Node-table inputs are 1-D torch tensors
+(numpy arrays are taken as CPU tensors); there is no padding to tiles.
 
 Backend selection:
 
 * ``backend="kernel"`` — the CUDA kernel for CUDA tensors, its plain
-  torch version for CPU tensors (:mod:`.node_score`);
+  torch version for CPU tensors (:mod:`.node_score`, :mod:`.wkv6`);
 * ``backend="ref"``    — the plain torch version on the tensors' device.
 """
 
@@ -22,7 +22,8 @@ import torch
 from ..core.scoring import ScoreWeights
 from ..device import NEG_INF
 from . import node_score as _ns
-from .ref import node_scores_ref, node_scores_slots_ref
+from . import wkv6 as _wkv
+from .ref import node_scores_ref, node_scores_slots_ref, wkv6_ref
 
 BACKENDS = ("kernel", "ref")
 
@@ -162,3 +163,19 @@ def best_node(free, used, mask, group_load, topo_pref, *, request: int,
     if float(scores[idx]) <= NEG_INF:
         return -1
     return idx
+
+
+def wkv6(r, k, v, w, u, s0, *, backend: str = "kernel"):
+    """RWKV-6 WKV recurrence over a full sequence.
+
+    r, k, v, w: (B, T, H, n) f32 or bf16; u: (H, n); s0: (B, H, n, n).
+    Returns (o (B, T, H, n) f32, S_T (B, H, n, n) f32).  u and s0 are
+    taken in f32 and the streams contiguous (no copy where they are)."""
+    r, k, v, w = (t.contiguous() for t in (r, k, v, w))
+    u = u.to(torch.float32).contiguous()
+    s0 = s0.to(torch.float32).contiguous()
+    if backend == "kernel":
+        return _wkv.wkv6(r, k, v, w, u, s0)
+    if backend == "ref":
+        return wkv6_ref(r, k, v, w, u, s0)
+    raise ValueError(f"unknown backend {backend!r}; expected {BACKENDS}")

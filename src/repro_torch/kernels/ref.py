@@ -1,6 +1,7 @@
-"""Plain PyTorch versions of the fused node filter+score pass.
+"""Plain PyTorch versions of the port's kernels: the fused node
+filter+score pass and the RWKV-6 WKV recurrence.
 
-Semantics match :func:`repro_torch.core.scoring.node_scores_np` bit for
+Node scores match :func:`repro_torch.core.scoring.node_scores_np` bit for
 bit: f32 throughout, weights rounded once to f32, ``used / g`` (a true
 division, not a multiply by ``1/g``), and numpy's evaluation order
 ``((w_u·(used/g) + w_f·fit) + w_g·gload) + w_t·topo``.  Each operand that
@@ -8,7 +9,8 @@ is not a node column is a 0-d tensor on the columns' device: CUDA
 divides by a *CPU scalar* as a multiply by its reciprocal, which would
 break bit-equality at g = 6.  Each op is its own launch, so nothing is
 contracted into an FMA.  These run on CPU or CUDA tensors; the CUDA
-kernel in :mod:`repro_torch.kernels.node_score` is held against them.
+kernels in :mod:`repro_torch.kernels.node_score` and
+:mod:`repro_torch.kernels.wkv6` are held against them.
 """
 
 from __future__ import annotations
@@ -67,3 +69,25 @@ def node_scores_slots_ref(free: torch.Tensor, used: torch.Tensor,
                                          rounding_mode="floor"),
                         torch.zeros_like(free_i))
     return scores, slots.to(torch.int32)
+
+
+def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor):
+    """Plain step loop of the RWKV-6 WKV recurrence, the same maths as
+    the reference's ``kernels/ref.py::wkv6_ref``.
+
+    r, k, v, w: (B, T, H, n); u: (H, n); s0: (B, H, n, n).  Every input
+    is upcast to f32.  Returns (o (B, T, H, n) f32, S_T (B, H, n, n)
+    f32), with ``o_t = einsum(r_t, S + u·k_tᵀv_t)`` in that order and
+    ``S <- w_t[:, None]·S + k_tᵀv_t``.  Runs on the inputs' device; the
+    CUDA kernel in :mod:`repro_torch.kernels.wkv6` is held against it.
+    """
+    r, k, v, w = (t.to(torch.float32) for t in (r, k, v, w))
+    u = u.to(torch.float32)[None, :, :, None]
+    S = s0.to(torch.float32)
+    outs = []
+    for t in range(r.shape[1]):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]    # (B, H, n, n)
+        outs.append(torch.einsum("bhn,bhnm->bhm", r[:, t], S + u * kv))
+        S = w[:, t, :, :, None] * S + kv
+    return torch.stack(outs, dim=1), S

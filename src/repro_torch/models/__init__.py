@@ -1,0 +1,5 @@
+"""Model zoo of the port: the families ported so far (``ssm``)."""
+
+from .model import Model
+
+__all__ = ["Model"]

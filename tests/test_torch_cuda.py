@@ -1,5 +1,6 @@
-"""The port's CUDA kernels on the card: bit-equal to their plain torch
-versions, counted, and strict about their inputs.
+"""The port's CUDA kernels on the card: equal to their plain torch
+versions (the node scores bit for bit, WKV-6 within the reference's
+tolerances), counted, and strict about their inputs.
 
 Every test here needs a CUDA device and skips without one.  This file
 imports nothing of JAX, so it also runs where only the port is
@@ -11,8 +12,9 @@ import pytest
 import torch
 
 from repro_torch.core import scoring
-from repro_torch.kernels import node_score, ops
-from repro_torch.kernels.ref import node_scores_ref, node_scores_slots_ref
+from repro_torch.kernels import node_score, ops, wkv6
+from repro_torch.kernels.ref import (node_scores_ref, node_scores_slots_ref,
+                                     wkv6_ref)
 
 pytestmark = pytest.mark.cuda
 
@@ -116,3 +118,104 @@ def test_rsch_on_the_card_matches_host_numpy(cuda):
     for kw in ({}, {"subset_scoring": False}, {"batched_gang": False},
                {"slot_engine": "topk_kernel"}):
         assert picks(**kw) == want
+
+
+# -- WKV-6 --------------------------------------------------------------------
+# The reference's kernel-test shapes (tolerance 1e-5 with f32 inputs, 3e-2
+# with bf16, as in tests/test_kernels.py), then long sequences at the
+# model's head size and the serve shape (worst error <= 1e-4 of max|o|).
+WKV_REF_SHAPES = [(1, 16, 1, 8), (2, 32, 3, 8), (2, 64, 2, 16), (3, 48, 5, 4)]
+WKV_LONG_SHAPES = [(2, 1, 4, 64), (2, 37, 4, 64), (2, 513, 4, 64),
+                   (1, 512, 40, 64)]
+WKV_TYPES = {"f32": (torch.float32,) * 4, "bf16": (torch.bfloat16,) * 4,
+             "mixed": (torch.bfloat16,) * 3 + (torch.float32,)}
+
+
+def _wkv_inputs(shape, types, device, seed=0):
+    B, T, H, n = shape
+    rng = np.random.default_rng(seed)
+    r, k, v = (rng.standard_normal((B, T, H, n)) * 0.5 for _ in range(3))
+    w = 1.0 / (1.0 + np.exp(-rng.standard_normal((B, T, H, n))))
+    u = rng.standard_normal((H, n)) * 0.5
+    s0 = rng.standard_normal((B, H, n, n)) * 0.1
+
+    def dev(a, dtype=torch.float32):
+        return torch.from_numpy(a.astype(np.float32)).to(device).to(dtype)
+    return (*(dev(a, t) for a, t in zip((r, k, v, w), types)), dev(u),
+            dev(s0))
+
+
+@pytest.mark.parametrize("types", sorted(WKV_TYPES))
+@pytest.mark.parametrize("shape", WKV_REF_SHAPES + WKV_LONG_SHAPES)
+def test_wkv6_kernel_matches_plain_version(cuda, shape, types):
+    args = _wkv_inputs(shape, WKV_TYPES[types], cuda)
+    o, sT = wkv6.wkv6(*args)
+    po, psT = wkv6_ref(*args)
+    torch.cuda.synchronize()
+    assert o.dtype == sT.dtype == torch.float32
+    if shape in WKV_REF_SHAPES:
+        tol = 1e-5 if types == "f32" else 3e-2
+        torch.testing.assert_close(o, po, atol=tol, rtol=tol)
+        torch.testing.assert_close(sT, psT, atol=tol, rtol=tol)
+    else:
+        for got, want in ((o, po), (sT, psT)):
+            assert float((got - want).abs().max()) <= \
+                1e-4 * float(want.abs().max())
+
+
+def test_wkv6_launch_counts_once(cuda):
+    args = _wkv_inputs((1, 8, 2, 16), WKV_TYPES["f32"], cuda)
+    before = wkv6.wkv6.launches
+    wkv6.wkv6(*args)
+    wkv6_ref(*args)
+    ops.wkv6(*args, backend="ref")
+    assert wkv6.wkv6.launches == before + 1
+    ops.wkv6(*args)
+    assert wkv6.wkv6.launches == before + 2
+
+
+def test_wkv6_wrapper_rejects_bad_inputs(cuda):
+    r, k, v, w, u, s0 = _wkv_inputs((1, 4, 2, 8), WKV_TYPES["f32"], cuda)
+    with pytest.raises(ValueError, match="head size"):
+        big = _wkv_inputs((1, 2, 1, 65), WKV_TYPES["f32"], cuda)
+        wkv6.wkv6(*big)
+    with pytest.raises(TypeError, match="k must"):
+        wkv6.wkv6(r, k.half(), v, w, u, s0)
+    with pytest.raises(TypeError, match="u must"):
+        wkv6.wkv6(r, k, v, w, u.double(), s0)
+    with pytest.raises(ValueError, match="on cpu"):
+        wkv6.wkv6(r, k, v, w, u, s0.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        wkv6.wkv6(r, k, torch.cat([v, v], dim=-1)[..., ::2], w, u, s0)
+    with pytest.raises(ValueError, match="shape"):
+        wkv6.wkv6(r, k, v, w[:, :2], u, s0)
+    with pytest.raises(ValueError, match="T must"):
+        wkv6.wkv6(r[:, :0], k[:, :0], v[:, :0], w[:, :0], u, s0)
+
+
+def test_rwkv6_serving_on_the_card_matches_the_plain_scan(cuda):
+    """The smoke model served on the card: the kernel prefill agrees with
+    the plain step loop, and the engine launches it once per layer per
+    prefill."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import Model
+    from repro_torch.serve import Request, ServeEngine
+    cfg = get_arch("rwkv6-3b", smoke=True)
+    model = Model(cfg, device=cuda).init(
+        torch.Generator(device=cuda).manual_seed(0))
+    scan = Model(cfg, device=cuda, wkv_backend="scan")
+    scan.load_state_dict(model.state_dict(), assign=True)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, size=(1, 300)).astype(np.int32))
+    lk, ck = model.prefill({"tokens": tokens})
+    ls, cs = scan.prefill({"tokens": tokens})
+    for got, want in ((lk, ls), (ck["layers"]["state"], cs["layers"]["state"])):
+        assert float((got - want).abs().max()) <= \
+            1e-3 * float(want.abs().max())
+    eng = ServeEngine(cfg, model.state_dict(), batch_size=2, device=cuda)
+    before = wkv6.wkv6.launches
+    for i in range(3):
+        eng.submit(Request(uid=i, prompt=tokens[0, :20 + i].numpy(),
+                           max_new_tokens=3))
+    assert len(eng.run_until_drained()) == 3
+    assert wkv6.wkv6.launches - before == cfg.n_layers * eng.prefill_calls
