@@ -24,9 +24,22 @@ Phases, each printed as one JSON line on stdout:
              launches the score-only kernel, placements equal batched;
 6. scale   — one 64-pod × 8-GPU gang cycle at 10k / 100k / 1M nodes with
              subset scoring on and off (off = full-width kernel sweep);
-7. wkv-sweep    — the WKV kernel against its plain version at the
-             reference's test shapes, at T ∈ {1, 37, 513} and at the
-             serve shape, with f32, bf16 and mixed stream types;
+7. wkv-sweep    — the chunked WKV kernel against its plain version at
+             the reference's test shapes, at T ∈ {1, 37, 513}, at the
+             serve shape, at the chunk's edges (T = 15, 16, 17) and under
+             strong decays (w = exp(-exp(x)), some exactly 0 and 1) at
+             T ∈ {1, 15, 16, 17, 37, 513}, with f32, bf16 and mixed stream
+             types; beside each kernel error, the error of the plain
+             mirror of its algorithm (``wkv6_chunked_ref``), so that a
+             kernel fault and an algorithm fault are told apart;
+7b. wkv-time    — the chunked kernels and the serial step kernel they
+             replaced, in turns (step, chunked, chunked, step), at
+             (1, T, 40, 64) f32 for T ∈ {64, 445, 512, 2048, 4096}, each
+             beside its bytes bound; then the chunked pair's device time
+             split between its two kernels (torch.profiler) at the serve
+             shape, and one head alone at T = 4096 against forty (a chunk
+             step that costs the same is bound by latency, not by the
+             card's throughput);
 8. serve        — rwkv6-3b at full width (f32, seeded weights) behind a
              ``ServeEngine(batch_size=4)``: 8 requests of 64–512 prompt
              tokens, 16 new tokens each; the WKV kernel runs once per
@@ -67,6 +80,9 @@ DEVICE = "cuda"
 WKV_REF_SHAPES = ((1, 16, 1, 8), (2, 32, 3, 8), (2, 64, 2, 16), (3, 48, 5, 4))
 WKV_LONG_SHAPES = ((2, 1, 4, 64), (2, 37, 4, 64), (2, 513, 4, 64))
 WKV_SERVE_SHAPE = (1, 512, 40, 64)
+WKV_EDGE_T = (15, 16, 17)            # the chunk's edges, C = 16
+WKV_STRONG_T = (1, 15, 16, 17, 37, 513)
+WKV_TIME_T = (64, 445, 512, 2048, 4096)
 WKV_TOL_F32 = 1e-5      # the reference's own, f32 inputs
 WKV_TOL_BF16 = 3e-2     # the reference's own, bf16 inputs
 WKV_TOL_LONG = 1e-4     # max|Δ| / max|o_ref| at T = 513 and the serve shape
@@ -215,14 +231,21 @@ def device_busy_ms(torch, run) -> dict:
     return {"kernel_ms": kernel, "copy_ms": copy, "top": top}
 
 
-def wkv_inputs(np, torch, shape, types, seed: int = 0):
+def wkv_inputs(np, torch, shape, types, seed: int = 0, strong=False):
     """WKV inputs on the card in the distributions of the reference's
     kernel tests: r, k, v ~ N(0, 1)/2, w = sigmoid(N(0, 1)), u ~ N/2,
-    s0 ~ N/10; the streams cast to ``types``."""
+    s0 ~ N/10; the streams cast to ``types``.  With ``strong``, decays
+    w = exp(-exp(x)), x ~ 2·N(0, 1) + 1, 5% exactly 0.0 and 5% 1.0."""
     B, T, H, n = shape
     rng = np.random.default_rng(seed)
     r, k, v = (rng.standard_normal((B, T, H, n)) * 0.5 for _ in range(3))
-    w = 1.0 / (1.0 + np.exp(-rng.standard_normal((B, T, H, n))))
+    if strong:
+        w = np.exp(-np.exp(2.0 * rng.standard_normal((B, T, H, n)) + 1.0))
+        pick = rng.random((B, T, H, n))
+        w[pick < 0.05] = 0.0
+        w[pick > 0.95] = 1.0
+    else:
+        w = 1.0 / (1.0 + np.exp(-rng.standard_normal((B, T, H, n))))
     u = rng.standard_normal((H, n)) * 0.5
     s0 = rng.standard_normal((B, H, n, n)) * 0.1
 
@@ -245,6 +268,18 @@ def wkv_bound_ms(shape, stream_bytes: int) -> tuple:
                                        else "operations")
 
 
+def ptxas_summary(log: str) -> list:
+    """Per kernel entry in a ``ptxas -v`` log: its (mangled) name and the
+    lines that give registers, shared memory, stack and spills."""
+    out = []
+    for part in log.split("Compiling entry function")[1:]:
+        name = part.split("'")[1] if "'" in part else part[:80]
+        info = [ln.split("info    :")[-1].strip() for ln in part.splitlines()
+                if "registers" in ln or "spill" in ln]
+        out.append({"entry": name, "info": info})
+    return out
+
+
 def rel_err(a, b) -> float:
     """max|a - b| / max|b| (0 when b is all zero)."""
     den = float(b.abs().max())
@@ -264,7 +299,8 @@ def main() -> int:
     from repro_torch.configs import get_arch
     from repro_torch.kernels import node_score, ops, wkv6
     from repro_torch.kernels.ref import (node_scores_ref,
-                                         node_scores_slots_ref, wkv6_ref)
+                                         node_scores_slots_ref,
+                                         wkv6_chunked_ref, wkv6_ref)
     from repro_torch.models import Model
     from repro_torch.serve import Request, ServeEngine
 
@@ -286,7 +322,8 @@ def main() -> int:
           "flags": " ".join(node_score.NVCC_FLAGS),
           "wkv6": {"seconds": wkv6.build_seconds,
                    "flags": " ".join(wkv6.NVCC_FLAGS),
-                   "ptxas": wkv6.build_log},
+                   "ptxas": ptxas_summary(wkv6.build_log),
+                   "ptxas_log": wkv6.build_log},
           "wall_s": time.perf_counter() - t0})
 
     # -- 3. sweep: kernel vs plain version, bit patterns ------------------
@@ -470,34 +507,100 @@ def main() -> int:
     wkv_types = {"f32": (f32,) * 4, "bf16": (bf16,) * 4,
                  "mixed": (bf16, bf16, bf16, f32)}
     sweep, t0 = [], time.perf_counter()
+
+    def errors(group, tname, got, want) -> tuple:
+        """(max abs error, max rel error, tolerance, within it): allclose
+        at the reference's tolerance for the reference shapes and for
+        T <= 64 in the edge and strong groups, else max|Δ| / max|want|."""
+        (o, sT), (po, psT) = got, want
+        abs_err = max(float((o - po).abs().max()),
+                      float((sT - psT).abs().max()))
+        rel = max(rel_err(o, po), rel_err(sT, psT))
+        finite = bool(torch.isfinite(o).all() and torch.isfinite(sT).all())
+        if group == "reference" or (group in ("edge", "strong")
+                                    and o.shape[1] <= 64):
+            tol = WKV_TOL_F32 if tname == "f32" else WKV_TOL_BF16
+            ok = all(torch.allclose(a, b, atol=tol, rtol=tol)
+                     for a, b in ((o, po), (sT, psT)))
+        else:
+            tol = WKV_TOL_LONG
+            ok = rel <= tol
+        return abs_err, rel, tol, ok and finite
+
+    strong_shapes = WKV_REF_SHAPES + tuple((2, t, 4, 64)
+                                           for t in WKV_STRONG_T)
     for group, shapes in (("reference", WKV_REF_SHAPES),
                           ("long", WKV_LONG_SHAPES),
-                          ("serve", (WKV_SERVE_SHAPE,))):
+                          ("serve", (WKV_SERVE_SHAPE,)),
+                          ("edge", tuple((2, t, 4, 64) for t in WKV_EDGE_T)),
+                          ("strong", strong_shapes)):
         for shape in shapes:
             for tname, types in wkv_types.items():
-                args = wkv_inputs(np, torch, shape, types)
-                o, sT = wkv6.wkv6(*args)
-                po, psT = wkv6_ref(*args)
+                args = wkv_inputs(np, torch, shape, types,
+                                  strong=group == "strong")
+                got = wkv6.wkv6(*args)
+                want = wkv6_ref(*args)
+                mirror = wkv6_chunked_ref(*args, chunk=wkv6.CHUNK)
                 torch.cuda.synchronize()
-                abs_err = max(float((o - po).abs().max()),
-                              float((sT - psT).abs().max()))
-                rel = max(rel_err(o, po), rel_err(sT, psT))
-                if group == "reference":
-                    tol = WKV_TOL_F32 if tname == "f32" else WKV_TOL_BF16
-                    ok = all(torch.allclose(a, b, atol=tol, rtol=tol)
-                             for a, b in ((o, po), (sT, psT)))
-                else:
-                    tol = WKV_TOL_LONG
-                    ok = rel <= tol
+                abs_err, rel, tol, ok = errors(group, tname, got, want)
+                m_abs, m_rel, _, m_ok = errors(group, tname, mirror, want)
                 sweep.append({"group": group, "shape": shape,
                               "types": tname, "max_abs_err": abs_err,
-                              "max_rel_err": rel, "tol": tol, "ok": ok})
+                              "max_rel_err": rel, "tol": tol, "ok": ok,
+                              "mirror_abs_err": m_abs,
+                              "mirror_rel_err": m_rel, "mirror_ok": m_ok})
     emit({"phase": "wkv-sweep", "cases": sweep,
           "worst_abs_err": max(c["max_abs_err"] for c in sweep),
           "worst_rel_err": max(c["max_rel_err"] for c in sweep),
+          "mirror_worst_abs_err": max(c["mirror_abs_err"] for c in sweep),
           "seconds": time.perf_counter() - t0})
+    bad = [c for c in sweep if not c["mirror_ok"]]
+    check(not bad, f"the chunked algorithm's mirror disagrees with the "
+                   f"plain version (an algorithm fault): {bad}")
     bad = [c for c in sweep if not c["ok"]]
-    check(not bad, f"wkv6 kernel disagrees with its plain version: {bad}")
+    check(not bad, f"wkv6 kernel disagrees with its plain version while "
+                   f"its algorithm's mirror agrees (a kernel fault): {bad}")
+
+    # -- 7b. wkv-time: chunked kernel against the step kernel, in turns --
+    wkv_time = []
+    for T in WKV_TIME_T:
+        shape = WKV_SERVE_SHAPE[:1] + (T,) + WKV_SERVE_SHAPE[2:]
+        args = wkv_inputs(np, torch, shape, (f32,) * 4, seed=T)
+        co, csT = wkv6.wkv6(*args)
+        so, ssT = wkv6.wkv6_step(*args)
+        torch.cuda.synchronize()
+        rel = max(rel_err(co, so), rel_err(csT, ssT))
+        check(rel <= WKV_TOL_LONG,
+              f"chunked and step kernels differ by {rel} at T = {T}")
+        turns = {"step": [], "chunked": []}
+        for name in ("step", "chunked", "chunked", "step"):
+            fn = wkv6.wkv6_step if name == "step" else wkv6.wkv6
+            turns[name].append(device_ms(torch, lambda: fn(*args), 10,
+                                         flush))
+        b_ms, b_by = wkv_bound_ms(shape, 4 * 4)
+        step_ms = sum(turns["step"]) / 2
+        chunk_ms = sum(turns["chunked"]) / 2
+        wkv_time.append({"shape": shape, "step_ms": step_ms,
+                         "chunked_ms": chunk_ms, "turns": turns,
+                         "bound_ms": b_ms, "bound_by": b_by,
+                         "speedup": step_ms / chunk_ms,
+                         "chunked_over_bound": chunk_ms / b_ms,
+                         "chunked_faster": chunk_ms < step_ms,
+                         "max_rel_diff": rel})
+        emit({"phase": "wkv-time", **wkv_time[-1]})
+    args = wkv_inputs(np, torch, WKV_SERVE_SHAPE, (f32,) * 4)
+    split = device_busy_ms(torch, lambda: [wkv6.wkv6(*args)
+                                           for _ in range(10)])
+    long_T = WKV_TIME_T[-1]
+    per_step = {}
+    for heads in (1, WKV_SERVE_SHAPE[2]):
+        args = wkv_inputs(np, torch, (1, long_T, heads, WKV_SERVE_SHAPE[3]),
+                          (f32,) * 4)
+        per_step[heads] = device_ms(torch, lambda: wkv6.wkv6(*args), 10,
+                                    flush) / -(-long_T // wkv6.CHUNK) * 1e3
+    emit({"phase": "wkv-time-split", "shape": WKV_SERVE_SHAPE,
+          "launches": 10, "device_ms_by_kernel": split["top"],
+          "T": long_T, "us_per_chunk_step_by_heads": per_step})
 
     # -- 8. serve: rwkv6-3b at full width behind the ServeEngine -------
     cfg = get_arch(SERVE_ARCH)
@@ -546,9 +649,11 @@ def main() -> int:
     node_score.node_scores.launches = 0
     node_score.node_scores_slots.launches = 0
     wkv6.wkv6.launches = 0
+    wkv6.wkv6_step.launches = 0
     engine, finished, serve_wall = engine_run(
         [(p, SERVE_NEW) for p in prompts], timings)
     serve_launches = {"wkv6": wkv6.wkv6.launches,
+                      "wkv6_step": wkv6.wkv6_step.launches,
                       "node_scores": node_score.node_scores.launches,
                       "node_scores_slots":
                           node_score.node_scores_slots.launches}
@@ -557,6 +662,8 @@ def main() -> int:
     check(serve_launches["wkv6"] == cfg.n_layers * engine.prefill_calls,
           f"wkv6 launches {serve_launches['wkv6']} != {cfg.n_layers} x "
           f"{engine.prefill_calls} prefills")
+    check(serve_launches["wkv6_step"] == 0,
+          "serve path launched the step kernel")
     check(len(finished) == SERVE_REQUESTS
           and all(len(r.generated) == SERVE_NEW for r in finished),
           "serve left requests unfinished")
@@ -572,6 +679,7 @@ def main() -> int:
           "prompt_lens": [int(n) for n in lens],
           "prefill_calls": engine.prefill_calls,
           "prefill_ms_per_request": float(np.mean(pre_s)) * 1e3,
+          "prefill_ms": [s * 1e3 for s in pre_s],
           "prefill_tokens_per_s": float(lens.sum()) / sum(pre_s),
           "decode_steps": len(dec_s), "decode_batch": SERVE_BATCH,
           "decode_ms_per_step_median": float(np.median(dec_s)) * 1e3,
@@ -682,9 +790,8 @@ def main() -> int:
          "bound_by": by_score, "library_ms": None, "nodes": n1m},
     ]
     args = wkv_inputs(np, torch, WKV_SERVE_SHAPE, (torch.float32,) * 4)
-    w_ms = device_ms(torch, lambda: wkv6.wkv6(*args), 20, flush)
+    w_time = next(c for c in wkv_time if c["shape"] == WKV_SERVE_SHAPE)
     w_plain = device_ms(torch, lambda: wkv6_ref(*args), 3, flush)
-    w_bound, w_by = wkv_bound_ms(WKV_SERVE_SHAPE, 4 * 4)
     kernels.append(
         {"name": "wkv6", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/wkv6.cu",
@@ -694,8 +801,9 @@ def main() -> int:
                           f"{SERVE_ARCH} full width",
          "max_abs_err": max(c["max_abs_err"] for c in sweep),
          "max_rel_err": max(c["max_rel_err"] for c in sweep),
-         "ms": w_ms, "plain_ms": w_plain, "bound_ms": w_bound,
-         "bound_by": w_by, "library_ms": None,
+         "ms": w_time["chunked_ms"], "step_ms": w_time["step_ms"],
+         "plain_ms": w_plain, "bound_ms": w_time["bound_ms"],
+         "bound_by": w_time["bound_by"], "library_ms": None,
          "shape": WKV_SERVE_SHAPE, "types": "f32"})
     print(json.dumps({"kernels": kernels,
                       "library_note": "no single PyTorch call computes the "

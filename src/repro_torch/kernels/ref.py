@@ -91,3 +91,80 @@ def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         outs.append(torch.einsum("bhn,bhnm->bhm", r[:, t], S + u * kv))
         S = w[:, t, :, :, None] * S + kv
     return torch.stack(outs, dim=1), S
+
+
+def wkv6_chunked_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor,
+                     chunk: int = 16):
+    """The chunked kernels' algorithm (``csrc/wkv6.cu``) in plain torch,
+    step for step: the same values as :func:`wkv6_ref` by another route.
+
+    T is cut into chunks of ``chunk`` steps (a power of two); the ragged
+    last chunk is padded with r = k = v = 0 and w = 1, which leaves the
+    state as it is.  Per chunk, with D(x, y) the product of w_j over
+    x <= j < y (1 when empty, never a log or an exp):
+
+      o_t   = (r_t·D(t0, t)) @ S_in + Σ_{s<t} A[t, s] v_s + (r_t·u·k_t) v_t
+      S_out = D(t0, t0+C)[:, None]·S_in + Σ_s (k_s·D(s+1, t0+C))ᵀ v_s
+
+    with A[t, s] = Σ_i r_t[i] k_s[i] D(s+1, t)[i] split at the start R of
+    the upper half of the smallest aligned block holding s and t (level
+    L = the top bit of t xor s): (r_t·D(R, t)) · (k_s·D(s+1, R)), both
+    factors in [0, 1].  The products run in the kernel's order.  Returns
+    (o (B, T, H, n) f32, S_T (B, H, n, n) f32) on the inputs' device.
+    """
+    if chunk < 1 or chunk & (chunk - 1):
+        raise ValueError(f"chunk must be a power of two, got {chunk}")
+    r, k, v, w = (t.to(torch.float32) for t in (r, k, v, w))
+    B, T, H, n = r.shape
+    C = chunk
+    n_chunks = -(-T // C)
+    pad = n_chunks * C - T
+
+    def blocks(x, fill):
+        if pad:
+            x = torch.cat([x, x.new_full((B, pad, H, n), fill)], dim=1)
+        return x.reshape(B, n_chunks, C, H, n).permute(0, 3, 1, 2, 4)
+
+    # (B, H, n_chunks, C, n)
+    r, k, v = (blocks(x, 0.0) for x in (r, k, v))
+    w = blocks(w, 1.0)
+    levels = C.bit_length() - 1
+    rf, kb = [r], [k]                 # level 0: no scaling
+    wtot = w[..., 0, :]
+    for lvl in range(1, levels + 1):
+        span = 1 << lvl
+        ws = w.reshape(B, H, n_chunks, C // span, span, n)
+        fwd, bwd = torch.empty_like(ws), torch.empty_like(ws)
+        p = torch.ones_like(ws[..., 0, :])
+        for j in range(span):
+            fwd[..., j, :] = p
+            p = p * ws[..., j, :]
+        if lvl == levels:
+            wtot = p[..., 0, :]       # D(t0, t0 + C)
+        p = torch.ones_like(p)
+        for j in reversed(range(span)):
+            bwd[..., j, :] = p
+            p = p * ws[..., j, :]
+        rf.append(r * fwd.reshape(r.shape))
+        kb.append(k * bwd.reshape(k.shape))
+
+    idx = torch.arange(C, device=r.device)
+    xor = idx[:, None] ^ idx[None, :]
+    lower = idx[None, :] < idx[:, None]                 # s < t
+    A = torch.zeros(B, H, n_chunks, C, C, device=r.device)
+    for lvl in range(levels):
+        mask = lower & (xor >= (1 << lvl)) & (xor < (2 << lvl))
+        A = A + torch.where(mask, rf[lvl] @ kb[lvl].transpose(-1, -2), 0.0)
+    bonus = ((r * u.to(torch.float32)[None, :, None, None, :]) * k).sum(-1)
+    A = A + torch.diag_embed(bonus)
+
+    S = s0.to(torch.float32)
+    outs = []
+    for c in range(n_chunks):
+        outs.append(rf[levels][:, :, c] @ S + A[:, :, c] @ v[:, :, c])
+        S = wtot[:, :, c, :, None] * S \
+            + kb[levels][:, :, c].transpose(-1, -2) @ v[:, :, c]
+    o = torch.stack(outs, dim=2)                        # (B, H, nc, C, n)
+    o = o.permute(0, 2, 3, 1, 4).reshape(B, n_chunks * C, H, n)[:, :T]
+    return o.contiguous(), S

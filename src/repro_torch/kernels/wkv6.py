@@ -1,15 +1,21 @@
-"""CUDA kernel of the RWKV-6 WKV recurrence, and its wrapper.
+"""CUDA kernels of the RWKV-6 WKV recurrence, and their wrappers.
 
-The kernel (``csrc/wkv6.cu``) replaces the Pallas TPU kernel
-``_wkv_kernel`` of the reference package's ``kernels/wkv6.py``.  It is
-built at first use with ``nvcc`` for ``sm_90a`` (:mod:`._build`) and
-loaded with ``ctypes``.
+The chunked kernels (``csrc/wkv6.cu``, ``wkv6_launch``: a pass over all
+chunks in parallel, then a serial scan over chunk boundaries) replace the
+Pallas TPU kernel ``_wkv_kernel`` of the reference package's
+``kernels/wkv6.py``; :func:`wkv6` runs them, and every caller of the port
+goes through that wrapper, which allocates their scratch.  The serial step
+kernel they replaced (``wkv6_step_launch``, same source) stays only as the
+yardstick they are timed against, behind :func:`wkv6_step`, which no
+backend, model or engine calls.  The library is built at first use with
+``nvcc`` for ``sm_90a`` (:mod:`._build`) and loaded with ``ctypes``.
 
-:func:`wkv6` takes the plain torch version (:func:`.ref.wkv6_ref`) only
+Each wrapper takes the plain torch version (:func:`.ref.wkv6_ref`) only
 for tensors that lie on the CPU.  For CUDA tensors it checks device,
-dtype, shape and contiguity, launches the kernel on the current stream,
+dtype, shape and contiguity, launches its kernel on the current stream,
 and raises if anything is off or the launch is refused: there is no
-fallback.  ``wkv6.launches`` counts kernel launches and nothing else.
+fallback.  ``wkv6.launches`` and ``wkv6_step.launches`` count kernel
+launches and nothing else.
 """
 
 from __future__ import annotations
@@ -26,6 +32,9 @@ from .ref import wkv6_ref
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 MAX_HEAD_SIZE = 64
+#: steps per chunk of the chunked kernels (``kChunk`` in ``csrc/wkv6.cu``);
+#: :func:`.ref.wkv6_chunked_ref` mirrors it at this chunk size.
+CHUNK = 16
 STREAM_DTYPES = (torch.float32, torch.bfloat16)
 
 _lib: Optional[ctypes.CDLL] = None
@@ -43,8 +52,11 @@ def build() -> ctypes.CDLL:
     t0 = time.perf_counter()
     lib, build_log = _build.load("wkv6.cu", NVCC_FLAGS)
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
-    lib.wkv6_launch.argtypes = [ptr] * 8 + [i64, i64, i32, i32, i32, ptr]
-    lib.wkv6_launch.restype = ctypes.c_int
+    lib.wkv6_launch.argtypes = [ptr] * 9 + [i64, i64, i32, i32, i32, ptr]
+    lib.wkv6_step_launch.argtypes = [ptr] * 8 + [i64, i64, i32, i32, i32, ptr]
+    lib.wkv6_launch.restype = lib.wkv6_step_launch.restype = ctypes.c_int
+    lib.wkv6_scratch_floats.argtypes = [i64, i64, i32, i32]
+    lib.wkv6_scratch_floats.restype = i64
     build_seconds = time.perf_counter() - t0
     _lib = lib
     return lib
@@ -60,7 +72,7 @@ def _check(r, k, v, w, u, s0) -> Tuple[int, int, int, int]:
         raise ValueError(f"T must be at least 1, got {T}")
     if n > MAX_HEAD_SIZE:
         raise ValueError(f"head size {n} > {MAX_HEAD_SIZE}: the kernel "
-                         f"keeps a state column of n floats in registers")
+                         f"sizes its tiles and registers for at most that")
     want = ((r, "r", (B, T, H, n), STREAM_DTYPES),
             (k, "k", (B, T, H, n), STREAM_DTYPES),
             (v, "v", (B, T, H, n), STREAM_DTYPES),
@@ -80,31 +92,55 @@ def _check(r, k, v, w, u, s0) -> Tuple[int, int, int, int]:
     return B, T, H, n
 
 
-def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-         w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor
-         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """RWKV-6 WKV over a full sequence.
-
-    r, k, v, w: (B, T, H, n), each f32 or bf16, contiguous; u: (H, n)
-    f32; s0: (B, H, n, n) f32; n <= 64, T >= 1.  Returns (o (B, T, H, n)
-    f32, S_T (B, H, n, n) f32)."""
-    if r.device.type == "cpu":
-        return wkv6_ref(r, k, v, w, u, s0)
+def _launch(name: str, r, k, v, w, u, s0
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Check the inputs and launch ``name`` from the library; raises on
+    anything the kernel does not take and on a refused launch."""
     B, T, H, n = _check(r, k, v, w, u, s0)
     o = torch.empty((B, T, H, n), dtype=torch.float32, device=r.device)
     sT = torch.empty((B, H, n, n), dtype=torch.float32, device=r.device)
     bf16_mask = sum(1 << i for i, t in enumerate((r, k, v, w))
                     if t.dtype == torch.bfloat16)
     lib = build()
+    ptrs = [t.data_ptr() for t in (r, k, v, w, u, s0, o, sT)]
+    if name == "wkv6_launch":   # the chunked kernels' per-chunk scratch
+        scratch = torch.empty(lib.wkv6_scratch_floats(B, T, H, n),
+                              dtype=torch.float32, device=r.device)
+        ptrs.append(scratch.data_ptr())
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
-        err = lib.wkv6_launch(*(t.data_ptr() for t in (r, k, v, w, u, s0,
-                                                       o, sT)),
-                              B, T, H, n, bf16_mask, stream)
+        err = getattr(lib, name)(*ptrs, B, T, H, n, bf16_mask, stream)
     if err != 0:
-        raise RuntimeError(f"wkv6_launch failed: CUDA error {err}")
-    wkv6.launches += 1
+        raise RuntimeError(f"{name} failed: CUDA error {err}")
     return o, sT
 
 
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RWKV-6 WKV over a full sequence, on the chunked kernels.
+
+    r, k, v, w: (B, T, H, n), each f32 or bf16, contiguous; u: (H, n)
+    f32; s0: (B, H, n, n) f32; n <= 64, T >= 1.  Returns (o (B, T, H, n)
+    f32, S_T (B, H, n, n) f32)."""
+    if r.device.type == "cpu":
+        return wkv6_ref(r, k, v, w, u, s0)
+    out = _launch("wkv6_launch", r, k, v, w, u, s0)
+    wkv6.launches += 1
+    return out
+
+
+def wkv6_step(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`wkv6` on the serial step kernel that the chunked kernels
+    replaced: the yardstick they are timed against, nothing else."""
+    if r.device.type == "cpu":
+        return wkv6_ref(r, k, v, w, u, s0)
+    out = _launch("wkv6_step_launch", r, k, v, w, u, s0)
+    wkv6_step.launches += 1
+    return out
+
+
 wkv6.launches = 0
+wkv6_step.launches = 0

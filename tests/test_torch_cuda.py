@@ -14,7 +14,7 @@ import torch
 from repro_torch.core import scoring
 from repro_torch.kernels import node_score, ops, wkv6
 from repro_torch.kernels.ref import (node_scores_ref, node_scores_slots_ref,
-                                     wkv6_ref)
+                                     wkv6_chunked_ref, wkv6_ref)
 
 pytestmark = pytest.mark.cuda
 
@@ -131,11 +131,19 @@ WKV_TYPES = {"f32": (torch.float32,) * 4, "bf16": (torch.bfloat16,) * 4,
              "mixed": (torch.bfloat16,) * 3 + (torch.float32,)}
 
 
-def _wkv_inputs(shape, types, device, seed=0):
+def _wkv_inputs(shape, types, device, seed=0, strong=False):
+    """The reference's kernel-test distributions; with ``strong``, decays
+    w = exp(-exp(x)), x ~ 2·N(0, 1) + 1, some exactly 0.0 and 1.0."""
     B, T, H, n = shape
     rng = np.random.default_rng(seed)
     r, k, v = (rng.standard_normal((B, T, H, n)) * 0.5 for _ in range(3))
-    w = 1.0 / (1.0 + np.exp(-rng.standard_normal((B, T, H, n))))
+    if strong:
+        w = np.exp(-np.exp(2.0 * rng.standard_normal((B, T, H, n)) + 1.0))
+        pick = rng.random((B, T, H, n))
+        w[pick < 0.05] = 0.0
+        w[pick > 0.95] = 1.0
+    else:
+        w = 1.0 / (1.0 + np.exp(-rng.standard_normal((B, T, H, n))))
     u = rng.standard_normal((H, n)) * 0.5
     s0 = rng.standard_normal((B, H, n, n)) * 0.1
 
@@ -191,6 +199,81 @@ def test_wkv6_wrapper_rejects_bad_inputs(cuda):
         wkv6.wkv6(r, k, v, w[:, :2], u, s0)
     with pytest.raises(ValueError, match="T must"):
         wkv6.wkv6(r[:, :0], k[:, :0], v[:, :0], w[:, :0], u, s0)
+
+
+# The chunked kernel at the chunk's edges, one step and ragged lengths,
+# under the reference's decays and under strong ones (w exactly 0 and 1).
+WKV_RAGGED_T = [1, wkv6.CHUNK - 1, wkv6.CHUNK, wkv6.CHUNK + 1, 37, 513]
+
+
+@pytest.mark.parametrize("strong", [False, True], ids=["sigmoid", "strong"])
+@pytest.mark.parametrize("types", sorted(WKV_TYPES))
+@pytest.mark.parametrize("T", WKV_RAGGED_T)
+def test_wkv6_chunked_kernel_ragged_T_and_strong_decays(cuda, T, types,
+                                                        strong):
+    args = _wkv_inputs((2, T, 4, 64), WKV_TYPES[types], cuda, seed=T,
+                       strong=strong)
+    o, sT = wkv6.wkv6(*args)
+    po, psT = wkv6_ref(*args)
+    mo, msT = wkv6_chunked_ref(*args, chunk=wkv6.CHUNK)
+    torch.cuda.synchronize()
+    for got, want in ((o, po), (sT, psT), (mo, po), (msT, psT)):
+        assert bool(torch.isfinite(got).all())
+        if T <= 64:
+            tol = 1e-5 if types == "f32" else 3e-2
+            torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+        else:
+            assert float((got - want).abs().max()) <= \
+                1e-4 * float(want.abs().max())
+
+
+def test_wkv6_chunked_kernel_matches_step_kernel_at_serve_shape(cuda):
+    args = _wkv_inputs((1, 512, 40, 64), WKV_TYPES["f32"], cuda, seed=3)
+    before = (wkv6.wkv6.launches, wkv6.wkv6_step.launches)
+    o, sT = wkv6.wkv6(*args)
+    so, ssT = wkv6.wkv6_step(*args)
+    torch.cuda.synchronize()
+    assert (wkv6.wkv6.launches, wkv6.wkv6_step.launches) == \
+        (before[0] + 1, before[1] + 1)
+    for got, want in ((o, so), (sT, ssT)):
+        assert float((got - want).abs().max()) <= \
+            1e-4 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("types", ["f32", "mixed"])
+@pytest.mark.parametrize("n", [64, 6])
+def test_wkv6_chunked_kernel_scalar_load_path(cuda, n, types):
+    """Streams one element past an aligned address (contiguous, storage
+    offset 1), and a head size that is not a multiple of 4, take the
+    kernel's element-by-element loads; the results are the same."""
+    args = _wkv_inputs((2, 37, 3, n), WKV_TYPES[types], cuda, seed=n,
+                       strong=True)
+    shifted = []
+    for a in args[:4]:
+        buf = torch.empty(a.numel() + 1, dtype=a.dtype, device=cuda)
+        shifted.append(buf[1:].view(a.shape).copy_(a))
+    o, sT = wkv6.wkv6(*shifted, *args[4:])
+    po, psT = wkv6_ref(*args)
+    torch.cuda.synchronize()
+    tol = 1e-5 if types == "f32" else 3e-2
+    torch.testing.assert_close(o, po, atol=tol, rtol=tol)
+    torch.testing.assert_close(sT, psT, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("fn", ["wkv6", "wkv6_step"])
+def test_wkv6_wrappers_reject_head_size_T_devices_and_strides(cuda, fn):
+    launch = getattr(wkv6, fn)
+    r, k, v, w, u, s0 = _wkv_inputs((1, 4, 2, 8), WKV_TYPES["f32"], cuda)
+    before = launch.launches
+    with pytest.raises(ValueError, match="head size"):
+        launch(*_wkv_inputs((1, 2, 1, 65), WKV_TYPES["f32"], cuda))
+    with pytest.raises(ValueError, match="T must"):
+        launch(r[:, :0], k[:, :0], v[:, :0], w[:, :0], u, s0)
+    with pytest.raises(ValueError, match="on cpu"):
+        launch(r, k.cpu(), v, w, u, s0)
+    with pytest.raises(ValueError, match="contiguous"):
+        launch(r, k, v, torch.cat([w, w], dim=-1)[..., ::2], u, s0)
+    assert launch.launches == before
 
 
 def test_rwkv6_serving_on_the_card_matches_the_plain_scan(cuda):
