@@ -13,17 +13,28 @@ Phases, each printed as one JSON line on stdout:
 2. build   — ``nvcc`` builds of ``kernels/csrc/node_score.cu`` and
              ``kernels/csrc/wkv6.cu`` for sm_90a, started together;
 3. sweep   — both node-score kernels against the plain torch version on
-             the card and the host numpy path, as int32 bit patterns;
+             the card and the host numpy path, as int32 bit patterns, at
+             sizes that include the edges of the vector path's group and
+             block; then on columns and outputs that are views one
+             element off 16-byte alignment (the kernel's scalar path);
 4. main    — the paper's §5.1 run (1,000 nodes × 8 GPUs, 1,000-job
              training trace at 300 jobs/h, Backfill + E-Binpack) through
              ``Simulator.run`` on the card, with ``device="cpu"`` and with
              the host numpy backend: placements byte-identical, metric
              reports equal, launches > 0; then a timed and a profiled run
-             split its time between the device seam and the rest;
+             split its time between the device seam and the rest, and
+             count the seam's host-to-device and device-to-host copies;
 5. per-pod — the per-pod path (``batched_gang=False``) at 10k nodes: it
              launches the score-only kernel, placements equal batched;
 6. scale   — one 64-pod × 8-GPU gang cycle at 10k / 100k / 1M nodes with
-             subset scoring on and off (off = full-width kernel sweep);
+             subset scoring on and off (off = full-width kernel sweep),
+             beside the launch floor (an empty kernel on the same launch
+             path);
+6b. seam-time — the packed seam (one copy up, one down) against the
+             per-column seam it replaced (five uploads, the kernel, two
+             downloads; written inline here) and against itself with its
+             cached views rebuilt on every call, in turns, at 33, 160,
+             10k and 1M nodes: median host µs a call;
 7. wkv-sweep    — the chunked WKV kernel against its plain version at
              the reference's test shapes, at T ∈ {1, 37, 513}, at the
              serve shape, at the chunk's edges (T = 15, 16, 17) and under
@@ -49,8 +60,9 @@ Phases, each printed as one JSON line on stdout:
              kernel and with the plain step loop: logits, states and
              greedy tokens agree.
 
-Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as the
-last line ``{"ok": true, "device": {...}}``.  Any failed check raises and
+Then the ``{"kernels": [...]}`` line (the node-score rows also carry
+each kernel's own device duration from a ``torch.profiler`` trace), the
+``nvidia-smi`` line, and as the last line ``{"ok": true, "device": {...}}``.  Any failed check raises and
 the script exits non-zero without that line.  Without a CUDA device it
 exits 2 before doing anything.
 """
@@ -71,6 +83,12 @@ F32_OPS_PER_S = 67e12         # H100 SXM, float32 outside the tensor cores
 READ_BYTES = 4 + 4 + 1 + 4 + 4  # free, used (int32), mask (bool), gload, topo
 FLOPS_PER_NODE = 8            # 1 div, 4 mul, 3 add
 SIZES = (1, 31, 32, 8193, 1_048_576)
+# The vector path's group (4 nodes), the seam's padding (16) and the
+# nodes a block of the vector path covers (1,024), on either side.
+EDGE_SIZES = (3, 4, 5, 15, 16, 17, 4095, 4096, 4097)
+UNALIGNED_SIZES = (1, 5, 17, 4097, 8193)
+SEAM_SIZES = (33, 160, 10_000, 1_000_000)
+SEAM_CALLS = {33: 300, 160: 300, 10_000: 100, 1_000_000: 10}
 SCALE_SIZES = (10_000, 100_000, 1_000_000)
 GANG_PODS, GPUS_PER_POD = 64, 8
 DEVICE = "cuda"
@@ -117,10 +135,11 @@ def bound_ms(n: int, out_bytes: int) -> tuple:
                                        else "operations")
 
 
-def device_ms(torch, fn, iters: int, flush=None) -> float:
+def device_ms(torch, fn, iters: int, flush=None, times=None) -> float:
     """Mean device ms of ``fn`` from CUDA events.  With ``flush`` (a
     buffer larger than L2), each launch is timed alone after the buffer
-    is rewritten, so the inputs come from HBM, as after a fresh upload."""
+    is rewritten, so the inputs come from HBM, as after a fresh upload;
+    each launch's ms is then also appended to ``times`` if given."""
     fn()
     torch.cuda.synchronize()
     total = 0.0
@@ -142,7 +161,37 @@ def device_ms(torch, fn, iters: int, flush=None) -> float:
         end.record()
         end.synchronize()
         total += start.elapsed_time(end)
+        if times is not None:
+            times.append(start.elapsed_time(end))
     return total / iters
+
+
+def median(xs) -> float:
+    return sorted(xs)[len(xs) // 2]
+
+
+def profiled_kernel_ms(torch, fn, flush, kernel: str, iters: int = 20
+                       ) -> float:
+    """Mean device duration of the kernel named ``kernel`` that ``fn``
+    launches, from the ``torch.profiler`` trace of ``iters`` calls, each
+    after ``flush`` is rewritten: the kernel's own time on the card, with
+    no launch or event overhead in it."""
+    def run():
+        for _ in range(iters):
+            flush.add_(1)
+            fn()
+    top = device_busy_ms(torch, run)["top"]
+    hits = [e for e in top if kernel in e["name"]]
+    check(len(hits) == 1 and hits[0]["count"] == iters,
+          f"no single {kernel} entry of {iters} launches in {top}")
+    return hits[0]["ms"] / iters
+
+
+def unaligned(torch, t):
+    """A copy of ``t`` that is a view one element past the start of its
+    buffer: contiguous, but not 16-byte aligned."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    return buf[1:].copy_(t)
 
 
 def placement_key(jobs):
@@ -168,11 +217,13 @@ def fragmented_state(core, np, n_nodes: int, seed: int = 0):
 
 
 def kernel_inputs(rec):
-    """The recorded ops call as (device columns, wrapper keywords)."""
+    """The recorded ops call as (device columns, wrapper keywords); the
+    columns are cloned out of the seam's buffers, which the next pass
+    overwrites."""
     from repro_torch.kernels import ops
     args, kw = rec.last
     w = kw["weights"]
-    return ops._columns(*args), dict(
+    return tuple(c.clone() for c in ops._columns(*args)), dict(
         request=kw["request"], gpus_per_node=kw["gpus_per_node"],
         w_used=w.used, w_fit=w.fit, w_group=w.group, w_topo=w.topo)
 
@@ -207,7 +258,8 @@ class CallRecorder:
 def device_busy_ms(torch, run) -> dict:
     """Device time by kind over ``run()`` from ``torch.profiler``:
     kernels vs memory copies, in ms (0 where the trace has no device
-    events), and the five device entries that took longest."""
+    events), the five device entries that took longest, and the number
+    of host-to-device and device-to-host copies."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -215,6 +267,7 @@ def device_busy_ms(torch, run) -> dict:
         torch.cuda.synchronize()
     kernel = copy = 0.0
     entries = []
+    copies = {"HtoD": 0, "DtoH": 0}
     for e in prof.key_averages():
         if "CUDA" not in str(e.device_type):
             continue
@@ -222,13 +275,17 @@ def device_busy_ms(torch, run) -> dict:
         if us is None:
             us = e.self_cuda_time_total
         entries.append((us / 1e3, e.count, e.key[:80]))
+        for way in copies:
+            if "memcpy" in e.key.lower() and way in e.key:
+                copies[way] += e.count
         if "memcpy" in e.key.lower() or "memset" in e.key.lower():
             copy += us / 1e3
         else:
             kernel += us / 1e3
     top = [{"name": k, "ms": ms, "count": n}
            for ms, n, k in sorted(entries, reverse=True)[:5]]
-    return {"kernel_ms": kernel, "copy_ms": copy, "top": top}
+    return {"kernel_ms": kernel, "copy_ms": copy, "top": top,
+            "copies": copies}
 
 
 def wkv_inputs(np, torch, shape, types, seed: int = 0, strong=False):
@@ -320,6 +377,7 @@ def main() -> int:
             fut.result()
     emit({"phase": "build", "seconds": node_score.build_seconds,
           "flags": " ".join(node_score.NVCC_FLAGS),
+          "ptxas": ptxas_summary(node_score.build_log),
           "wkv6": {"seconds": wkv6.build_seconds,
                    "flags": " ".join(wkv6.NVCC_FLAGS),
                    "ptxas": ptxas_summary(wkv6.build_log),
@@ -330,11 +388,11 @@ def main() -> int:
     weight_sets = {"BINPACK": core.BINPACK, "E_BINPACK": core.E_BINPACK,
                    "SPREAD": core.SPREAD, "E_SPREAD": core.E_SPREAD,
                    "MIXED": core.ScoreWeights(0.3, -0.2, 1.1, -0.7)}
-    stats = {"score": {"cases": 0, "mismatches": 0, "max_abs_err": 0.0},
-             "slots": {"cases": 0, "mismatches": 0, "max_abs_err": 0.0}}
+    stats = {name: {"cases": 0, "mismatches": 0, "max_abs_err": 0.0}
+             for name in ("score", "slots", "unaligned")}
     rng = np.random.default_rng(0)
     t0 = time.perf_counter()
-    for n in SIZES:
+    for n in sorted(set(SIZES + EDGE_SIZES)):
         for g in (8, 6):
             free = rng.integers(0, g + 1, size=n).astype(np.int32)
             used = (rng.random(n) * (g - free + 1)).astype(np.int32)
@@ -375,7 +433,32 @@ def main() -> int:
                                           free // request, 0)
                     slot_bad += int((sl.cpu().numpy() != host_slots).sum())
                     stats["slots"]["mismatches"] += slot_bad
-    emit({"phase": "sweep", "sizes": SIZES, "weight_sets": list(weight_sets),
+
+                    def bad_vs_host(score, slots) -> int:
+                        return int(
+                            (score.cpu().numpy().view(np.int32) != hb).sum()
+                            + (slots.cpu().numpy() != host_slots).sum())
+                    if n not in UNALIGNED_SIZES:
+                        continue
+                    # Columns and outputs one element off alignment: the
+                    # kernel's scalar path.
+                    ucols = tuple(unaligned(torch, c) for c in cols)
+                    us1 = node_score.node_scores(
+                        *ucols, **kw, out=unaligned(torch, torch.zeros_like(
+                            s1)))
+                    us2, usl = node_score.node_scores_slots(
+                        *ucols, **kw, out=(unaligned(torch, torch.zeros_like(
+                            s2)), unaligned(torch, torch.zeros_like(sl))))
+                    check(all(t.data_ptr() % 16 for t in (*ucols, us1, us2,
+                                                          usl)),
+                          "the unaligned views are aligned")
+                    st = stats["unaligned"]
+                    st["cases"] += 2
+                    st["mismatches"] += bad_vs_host(us2, usl) + int(
+                        (us1.cpu().numpy().view(np.int32) != hb).sum())
+    emit({"phase": "sweep", "sizes": sorted(set(SIZES + EDGE_SIZES)),
+          "unaligned_sizes": UNALIGNED_SIZES,
+          "weight_sets": list(weight_sets),
           "stats": stats, "seconds": time.perf_counter() - t0})
     for name, st in stats.items():
         check(st["mismatches"] == 0,
@@ -426,15 +509,24 @@ def main() -> int:
     import repro_torch.core.rsch as rsch_mod
     with CallRecorder(rsch_mod, "compute_node_scores_and_slots") as seam:
         _, wall_seam = run_51(None)
-    busy = device_busy_ms(torch, lambda: run_51(None))
+    with CallRecorder(rsch_mod, "compute_node_scores_and_slots") as pseam, \
+            CallRecorder(rsch_mod, "compute_node_scores") as pseam1:
+        busy = device_busy_ms(torch, lambda: run_51(None))
     busy_ms = busy["kernel_ms"] + busy["copy_ms"]
+    prof_calls = pseam.calls + pseam1.calls
+    copies = {way: count / max(1, prof_calls)
+              for way, count in busy["copies"].items()}
     emit({"phase": "main-breakdown", "wall_s": wall_seam,
           "seam_calls": seam.calls, "seam_s": seam.seconds,
           "seam_share": seam.seconds / wall_seam,
           "seam_us_per_call": seam.seconds / max(1, seam.calls) * 1e6,
           "device_kernel_ms": busy["kernel_ms"],
           "device_copy_ms": busy["copy_ms"],
-          "device_busy_share": busy_ms / 1e3 / wall_seam if busy_ms else None})
+          "device_busy_share": busy_ms / 1e3 / wall_seam if busy_ms else None,
+          "profiled_seam_calls": prof_calls, "copies": busy["copies"],
+          "copies_per_seam_call": copies})
+    check(copies == {"HtoD": 1.0, "DtoH": 1.0},
+          f"the seam makes {copies} copies a call, not one each way")
 
     # -- 5. per-pod path at 10k nodes ----------------------------------
     job = core.Job(uid=1, tenant="bench", gpu_type=0, n_pods=GANG_PODS,
@@ -462,6 +554,8 @@ def main() -> int:
 
     # -- 6. gang cycle at scale ----------------------------------------
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev)  # 256 MB
+    launch_floor_ms = device_ms(torch, lambda: node_score.noop(dev), 50,
+                                flush)
     scale = []
     for n in SCALE_SIZES:
         state = fragmented_state(core, np, n)
@@ -489,18 +583,76 @@ def main() -> int:
                 plain_times.append(time.perf_counter() - t)
             kcall = lambda: node_score.node_scores_slots(*cols, **kw)
             pcall = lambda: node_scores_slots_ref(*cols, **kw)
+            k_times = []
+            k_ms = device_ms(torch, kcall, 50, flush, k_times)
             bms, by = bound_ms(n_scored, 8)
             scale.append({
                 "nodes": n, "subset_scoring": subset,
                 "nodes_scored": n_scored,
                 "cycle_ms": float(np.median(times)) * 1e3,
                 "cycle_ms_plain": float(np.median(plain_times)) * 1e3,
-                "kernel_ms": device_ms(torch, kcall, 50, flush),
+                "kernel_ms": k_ms, "kernel_ms_median": median(k_times),
                 "wrapper_ms_back_to_back": device_ms(torch, kcall, 200),
                 "plain_ms": device_ms(torch, pcall, 20, flush),
-                "bound_ms": bms, "bound_by": by})
+                "bound_ms": bms, "bound_by": by,
+                "launch_floor_ms": launch_floor_ms})
             emit({"phase": "scale", **scale[-1]})
             full_cols, full_kw = cols, kw
+
+    # -- 6b. seam-time: the packed seam against the per-column one -----
+    col_dtypes = (np.int32, np.int32, np.bool_, np.float32, np.float32)
+
+    def per_column_seam(free, used, mask, gload, topo, request, g, w):
+        """The seam as it was before the packed one: five uploads from
+        pageable memory, the kernel, two downloads."""
+        cols = tuple(torch.from_numpy(np.ascontiguousarray(a, dtype=dt))
+                     .to(dev) for a, dt in zip((free, used, mask, gload,
+                                                 topo), col_dtypes))
+        s, sl = ops.node_scores_and_slots(*cols, request=request,
+                                          gpus_per_node=g, weights=w)
+        return s.cpu().numpy(), sl.cpu().numpy().astype(np.int64)
+
+    def packed_seam(*args):
+        return core.compute_node_scores_and_slots(*args, backend="kernel")
+
+    staging = core.scoring._staging_for(None)
+
+    def rebuilt_seam(*args):
+        """The packed seam with its cached views dropped first, so it
+        builds them again, as an uncached seam would on every call."""
+        staging._layouts.clear()
+        return packed_seam(*args)
+
+    seams = {"per_column": per_column_seam, "packed": packed_seam,
+             "packed_views_rebuilt": rebuilt_seam}
+    for n in SEAM_SIZES:
+        rng = np.random.default_rng(n)
+        free = rng.integers(0, 9, size=n).astype(np.int32)
+        used = (rng.random(n) * (9 - free)).astype(np.int32)
+        table = (free, used, rng.random(n) < 0.8,
+                 rng.random(n).astype(np.float32),
+                 rng.random(n).astype(np.float32))
+        args = (*table, 2, 8, core.E_BINPACK)
+        host = core.node_scores_np(*args)
+        host_slots = np.where(table[2] & (free >= 2), free // 2, 0)
+        for name, fn in seams.items():
+            got, got_slots = fn(*args)
+            check(np.array_equal(got.view(np.int32), host.view(np.int32))
+                  and np.array_equal(got_slots, host_slots),
+                  f"the {name} seam disagrees with numpy at {n} nodes")
+        times = {name: [] for name in seams}
+        for name in (*seams, *reversed(seams)):
+            for _ in range(SEAM_CALLS[n]):
+                t = time.perf_counter()
+                seams[name](*args)
+                times[name].append(time.perf_counter() - t)
+        med = {name: float(np.median(ts)) * 1e6 for name, ts in times.items()}
+        emit({"phase": "seam-time", "nodes": n,
+              "calls_per_turn": SEAM_CALLS[n],
+              "per_column_us_median": med["per_column"],
+              "packed_us_median": med["packed"],
+              "packed_views_rebuilt_us_median": med["packed_views_rebuilt"],
+              "packed_faster": med["packed"] < med["per_column"]})
 
     # -- 7. wkv-sweep: the WKV kernel against its plain version ---------
     f32, bf16 = torch.float32, torch.bfloat16
@@ -762,12 +914,17 @@ def main() -> int:
     # -- kernels line: timed at the 1M-node full-width pass ------------
     full = scale[-1]
     n1m = full["nodes_scored"]
-    k_score = device_ms(
-        torch, lambda: node_score.node_scores(*full_cols, **full_kw), 50,
-        flush)
     p_score = device_ms(
         torch, lambda: node_scores_ref(*full_cols, **full_kw), 20, flush)
     b_score, by_score = bound_ms(n1m, 4)
+    slots_call = lambda: node_score.node_scores_slots(*full_cols, **full_kw)
+    score_call = lambda: node_score.node_scores(*full_cols, **full_kw)
+    s_times = []
+    k_score = device_ms(torch, score_call, 50, flush, s_times)
+    # Each kernel's own device duration at 1M nodes, from the profiler.
+    prof_slots, prof_score = (
+        profiled_kernel_ms(torch, fn, flush, "node_score_kernel")
+        for fn in (slots_call, score_call))
     kernels = [
         {"name": "node_scores_slots", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/node_score.cu",
@@ -778,7 +935,9 @@ def main() -> int:
          "max_abs_err": stats["slots"]["max_abs_err"],
          "ms": full["kernel_ms"], "plain_ms": full["plain_ms"],
          "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],
-         "library_ms": None, "nodes": n1m},
+         "library_ms": None, "nodes": n1m,
+         "ms_median": full["kernel_ms_median"],
+         "profiled_ms": prof_slots, "launch_floor_ms": launch_floor_ms},
         {"name": "node_scores", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/node_score.cu",
          "replaces": "src/repro/kernels/node_score.py:41",
@@ -787,7 +946,9 @@ def main() -> int:
          "mismatches": stats["score"]["mismatches"],
          "max_abs_err": stats["score"]["max_abs_err"],
          "ms": k_score, "plain_ms": p_score, "bound_ms": b_score,
-         "bound_by": by_score, "library_ms": None, "nodes": n1m},
+         "bound_by": by_score, "library_ms": None, "nodes": n1m,
+         "ms_median": median(s_times), "profiled_ms": prof_score,
+         "launch_floor_ms": launch_floor_ms},
     ]
     args = wkv_inputs(np, torch, WKV_SERVE_SHAPE, (torch.float32,) * 4)
     w_time = next(c for c in wkv_time if c["shape"] == WKV_SERVE_SHAPE)

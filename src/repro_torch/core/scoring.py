@@ -116,15 +116,15 @@ def compute_node_scores(free: np.ndarray, used: np.ndarray,
     torch on ``device``) or ``"kernel"`` (the CUDA kernel on a CUDA
     device, its plain version on ``device="cpu"``).  ``device=None``
     means CUDA.  All return the same (n,) f32 host score vector with
-    ``NEG_INF`` at invalid nodes.
+    ``NEG_INF`` at invalid nodes; the device backends go through the
+    packed seam (:class:`_Staging`), one copy up and one down.
     """
     if backend == "np":
         return node_scores_np(free, used, mask, group_load, topo_pref,
                               request, gpus_per_node, weights)
-    from ..kernels.ops import node_scores  # deferred: keep np path torch-free
-    args = _upload(free, used, mask, group_load, topo_pref, device)
-    return node_scores(*args, request=request, gpus_per_node=gpus_per_node,
-                       weights=weights, backend=backend).cpu().numpy()
+    return _staged_pass((free, used, mask, group_load, topo_pref), request,
+                        gpus_per_node, weights, backend, device,
+                        with_slots=False)
 
 
 def compute_node_scores_and_slots(free: np.ndarray, used: np.ndarray,
@@ -134,27 +134,180 @@ def compute_node_scores_and_slots(free: np.ndarray, used: np.ndarray,
                                   backend: str = "kernel",
                                   device: Optional[str] = None):
     """Fused (scores, pod_slots) pass of the batched gang path on the
-    device: uploads the five node-table columns, runs one kernel, copies
-    both outputs back.  Returns host ``(f32 scores, int64 slots)``."""
-    from ..kernels.ops import node_scores_and_slots  # deferred
-    args = _upload(free, used, mask, group_load, topo_pref, device)
-    s, sl = node_scores_and_slots(
-        *args, request=request, gpus_per_node=gpus_per_node,
-        weights=weights, backend=backend)
-    return s.cpu().numpy(), sl.cpu().numpy().astype(np.int64)
+    device: packs the five node-table columns into one staging buffer,
+    copies it up once, runs one kernel into one output buffer, copies
+    that down once.  Returns host ``(f32 scores, int64 slots)`` that own
+    their memory."""
+    return _staged_pass((free, used, mask, group_load, topo_pref), request,
+                        gpus_per_node, weights, backend, device,
+                        with_slots=True)
 
 
-def _upload(free, used, mask, group_load, topo_pref, device):
-    """Host node-table columns -> contiguous copies in the kernel's
-    dtypes on ``device`` (``None`` = CUDA)."""
+# -- The packed device seam ---------------------------------------------------
+#: Column dtypes of the packed input, in kernel argument order: free, used,
+#: mask (bool, one byte a node), group_load, topo_pref.
+_IN_DTYPES = (np.int32, np.int32, np.bool_, np.float32, np.float32)
+_OUT_DTYPES = (np.float32, np.int32)           # scores, slots
+#: Every column segment starts at a multiple of this many bytes, so each
+#: is aligned for the kernel's 16-byte loads whatever n is.
+SEGMENT_ALIGN = 128
+#: n is padded to a multiple of this; padded nodes have mask 0 (invalid).
+NODE_PAD = 16
+
+
+def segment_offsets(n_pad: int, dtypes) -> "tuple[tuple[int, ...], int]":
+    """Byte offset of each column's segment, for ``n_pad`` nodes of each
+    of ``dtypes`` laid out in order at ``SEGMENT_ALIGN``-aligned offsets,
+    and the bytes they span."""
+    offsets, end = [], 0
+    for dt in dtypes:
+        start = -(-end // SEGMENT_ALIGN) * SEGMENT_ALIGN
+        offsets.append(start)
+        end = start + n_pad * np.dtype(dt).itemsize
+    return tuple(offsets), end
+
+
+class _Staging:
+    """The packed seam of one device: one host and one device buffer each
+    way (the host ones pinned when the device is a card), reused across
+    calls and grown geometrically when a pass needs more.
+
+    A pass fills the five column segments of the host input buffer with
+    ``np.copyto`` (casting as ``np.ascontiguousarray(a, dtype=...)``
+    does), copies the used bytes up in one non-blocking copy, runs the
+    kernel into views of the device output buffer, copies that down in
+    one non-blocking copy and synchronises the current stream.  On the
+    CPU the host buffers are the device buffers and nothing is copied.
+    The returned arrays are fresh copies: callers keep scores by
+    reference (RSCH's audit), and the buffers are overwritten by the
+    next pass.  Typed views of the buffers are cached per padded size:
+    building them costs more torch calls than the rest of a small pass
+    (``chip_smoke.py``'s ``seam-time`` times the seam both ways).
+    """
+
+    MIN_BYTES = 4096
+    #: view sets kept (one a padded size seen); all dropped when full
+    MAX_CACHED_LAYOUTS = 64
+
+    def __init__(self, device) -> None:
+        self.device = device
+        self.on_card = device.type != "cpu"
+        self.host_in = self.dev_in = self.host_out = self.dev_out = None
+        self._np_in = self._np_out = None
+        self._layouts: dict = {}
+
+    def _grown(self, buf, nbytes: int, on_device: bool):
+        import torch
+        if buf is not None and buf.numel() >= nbytes:
+            return buf
+        cap = max(nbytes, self.MIN_BYTES,
+                  2 * (0 if buf is None else buf.numel()))
+        if on_device:
+            return torch.empty(cap, dtype=torch.uint8, device=self.device)
+        return torch.empty(cap, dtype=torch.uint8, pin_memory=self.on_card)
+
+    def _reserve(self, in_bytes: int, out_bytes: int) -> None:
+        """Grow the buffers to hold ``in_bytes`` up and ``out_bytes``
+        down; a buffer that grows drops every cached view of the old."""
+        host_in = self._grown(self.host_in, in_bytes, False)
+        host_out = self._grown(self.host_out, out_bytes, False)
+        if host_in is self.host_in and host_out is self.host_out:
+            return
+        self._layouts.clear()
+        self.host_in, self.host_out = host_in, host_out
+        self._np_in, self._np_out = host_in.numpy(), host_out.numpy()
+        if self.on_card:
+            self.dev_in = self._grown(self.dev_in, host_in.numel(), True)
+            self.dev_out = self._grown(self.dev_out, host_out.numel(), True)
+        else:
+            self.dev_in, self.dev_out = host_in, host_out
+
+    def layout(self, n_pad: int, with_slots: bool):
+        """Typed views of the buffers for a pass over ``n_pad`` nodes:
+        (host columns, device columns, device outputs, host outputs,
+        (device, host) bytes to copy up, (host, device) bytes to copy
+        down), cached per ``(n_pad, with_slots)``."""
+        import torch
+        key = (n_pad, with_slots)
+        views = self._layouts.get(key)
+        if views is not None:
+            return views
+        out_dtypes = _OUT_DTYPES if with_slots else _OUT_DTYPES[:1]
+        in_offs, in_bytes = segment_offsets(n_pad, _IN_DTYPES)
+        out_offs, out_bytes = segment_offsets(n_pad, out_dtypes)
+        self._reserve(in_bytes, out_bytes)
+
+        def typed(np_buf, buf, offsets, dtypes):
+            host, dev = [], []
+            for off, dt in zip(offsets, dtypes):
+                end = off + n_pad * np.dtype(dt).itemsize
+                host.append(np_buf[off:end].view(dt))
+                dev.append(buf[off:end].view(
+                    getattr(torch, np.dtype(dt).name)))
+            return tuple(host), tuple(dev)
+
+        host_cols, dev_cols = typed(self._np_in, self.dev_in, in_offs,
+                                    _IN_DTYPES)
+        host_outs, dev_outs = typed(self._np_out, self.dev_out, out_offs,
+                                    out_dtypes)
+        if len(self._layouts) >= self.MAX_CACHED_LAYOUTS:
+            self._layouts.clear()
+        views = (host_cols, dev_cols, dev_outs, host_outs,
+                 (self.dev_in[:in_bytes], self.host_in[:in_bytes]),
+                 (self.host_out[:out_bytes], self.dev_out[:out_bytes]))
+        self._layouts[key] = views
+        return views
+
+
+_STAGING: dict = {}
+
+
+def _staging_for(device) -> _Staging:
+    """The staging pair of ``device`` (``None`` = CUDA), made at first
+    use; a CUDA device without an index means the current one."""
     import torch
 
     from ..device import resolve_device
     dev = resolve_device(device)
-    return tuple(
-        torch.from_numpy(np.ascontiguousarray(a, dtype=dt)).to(dev)
-        for a, dt in ((free, np.int32), (used, np.int32), (mask, np.bool_),
-                      (group_load, np.float32), (topo_pref, np.float32)))
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    st = _STAGING.get(dev)
+    if st is None:
+        st = _STAGING[dev] = _Staging(dev)
+    return st
+
+
+def _staged_pass(columns, request: int, gpus_per_node: int,
+                 weights: ScoreWeights, backend: str, device,
+                 with_slots: bool):
+    """One score (and slots) pass through the packed seam; see
+    :class:`_Staging`.  Returns owned host arrays."""
+    import torch
+
+    from ..kernels import ops  # deferred: keep the np path torch-free
+    st = _staging_for(device)
+    n = len(columns[0])
+    n_pad = -(-n // NODE_PAD) * NODE_PAD
+    kw = dict(request=request, gpus_per_node=gpus_per_node,
+              weights=weights, backend=backend)
+    host_cols, dev_cols, dev_outs, host_outs, up, down = \
+        st.layout(n_pad, with_slots)
+    for dst, src in zip(host_cols, columns):
+        np.copyto(dst[:n], src, casting="unsafe")
+        dst[n:] = 0
+    if st.on_card:
+        up[0].copy_(up[1], non_blocking=True)
+    if with_slots:
+        ops.node_scores_and_slots(*dev_cols, out=dev_outs, **kw)
+    else:
+        ops.node_scores(*dev_cols, out=dev_outs[0], **kw)
+    if st.on_card:
+        down[0].copy_(down[1], non_blocking=True)
+        torch.cuda.current_stream(st.device).synchronize()
+    scores = host_outs[0][:n].copy()
+    if not with_slots:
+        return scores
+    return scores, host_outs[1][:n].astype(np.int64)
 
 
 def pod_slots_np(free: np.ndarray, scores: np.ndarray,

@@ -5,14 +5,17 @@ The kernels (``csrc/node_score.cu``) replace the Pallas TPU kernels
 ``kernels/node_score.py``.  They are built at first use with ``nvcc``
 for ``sm_90a`` into ``build/repro_torch_kernels/`` (a plain C interface,
 no PyTorch headers, so the build takes seconds) and loaded with
-``ctypes``.
+``ctypes``.  The kernel takes its 16-byte vector path when every column
+and output is 16-byte aligned, else its scalar path; it chooses from the
+pointers, so a view at an odd offset is scored correctly either way.
 
 Each wrapper takes the plain torch version (:mod:`.ref`) only for
 tensors that lie on the CPU.  For CUDA tensors it checks device, dtype,
-shape and contiguity, launches the kernel on the current stream, and
-raises if anything is off or the launch is refused: there is no
-fallback.  ``launches`` on each wrapper counts kernel launches and
-nothing else.
+shape and contiguity (of the columns and of ``out=`` where given),
+launches the kernel on the current stream, and raises if anything is off
+or the launch is refused: there is no fallback.  ``launches`` on each
+wrapper counts kernel launches and nothing else.  :func:`noop` launches
+an empty kernel on the same path, to time the launch floor.
 """
 
 from __future__ import annotations
@@ -27,41 +30,42 @@ from . import _build
 from .ref import node_scores_ref, node_scores_slots_ref
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None
+#: what ``ptxas -v`` printed (registers, shared memory, spills) when this
+#: process built the library; empty when it was already built.
+build_log = ""
 
 
 def build() -> ctypes.CDLL:
     """Compile (once per source and flags) and load the kernel library
     (:func:`._build.load`)."""
-    global _lib, build_seconds
+    global _lib, build_seconds, build_log
     if _lib is not None:
         return _lib
     t0 = time.perf_counter()
-    lib, _ = _build.load("node_score.cu", NVCC_FLAGS)
+    lib, build_log = _build.load("node_score.cu", NVCC_FLAGS)
     ptr, i64, i32, f32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32,
                           ctypes.c_float)
     lib.node_scores_launch.argtypes = [ptr] * 6 + [i64, i32] + [f32] * 5 + [
         ptr]
-    lib.node_scores_launch.restype = ctypes.c_int
     lib.node_scores_slots_launch.argtypes = [ptr] * 7 + [i64, i32] + [
         f32] * 5 + [ptr]
-    lib.node_scores_slots_launch.restype = ctypes.c_int
+    lib.node_score_noop_launch.argtypes = [ptr]
+    for fn in (lib.node_scores_launch, lib.node_scores_slots_launch,
+               lib.node_score_noop_launch):
+        fn.restype = ctypes.c_int
     build_seconds = time.perf_counter() - t0
     _lib = lib
     return lib
 
 
-def _check(free, used, mask, group_load, topo_pref) -> int:
-    """Validate the node-table columns for a kernel launch; returns n."""
-    want = ((free, torch.int32, "free"), (used, torch.int32, "used"),
-            (mask, torch.bool, "mask"),
-            (group_load, torch.float32, "group_load"),
-            (topo_pref, torch.float32, "topo_pref"))
-    dev = free.device
-    n = free.shape[0] if free.dim() == 1 else -1
+def _check_like(dev: torch.device, n: int, want) -> None:
+    """Raise unless every ``(tensor, dtype, name)`` in ``want`` is a
+    contiguous (n,) tensor of that dtype on ``dev``."""
     for t, dtype, name in want:
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, free on {dev}")
@@ -72,7 +76,44 @@ def _check(free, used, mask, group_load, topo_pref) -> int:
                              f"{tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def _check(free, used, mask, group_load, topo_pref) -> int:
+    """Validate the node-table columns for a kernel launch; returns n."""
+    n = free.shape[0] if free.dim() == 1 else -1
+    _check_like(free.device, n, (
+        (free, torch.int32, "free"), (used, torch.int32, "used"),
+        (mask, torch.bool, "mask"),
+        (group_load, torch.float32, "group_load"),
+        (topo_pref, torch.float32, "topo_pref")))
     return n
+
+
+def _check_out_pair(dev: torch.device, n: int, out) -> None:
+    """Validate ``out=`` of the score+slots pass: (scores f32, slots
+    int32), each a contiguous (n,) tensor on ``dev``."""
+    if len(out) != 2:
+        raise ValueError("out must be a (scores, slots) pair")
+    _check_like(dev, n, ((out[0], torch.float32, "out[0]"),
+                         (out[1], torch.int32, "out[1]")))
+
+
+def fill(score: torch.Tensor, out: Optional[torch.Tensor]) -> torch.Tensor:
+    """A computed score vector, or ``out`` (checked) filled with it."""
+    if out is None:
+        return score
+    _check_like(score.device, score.shape[0], ((out, torch.float32, "out"),))
+    return out.copy_(score)
+
+
+def fill_pair(score: torch.Tensor, slots: torch.Tensor, out
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Computed (scores, slots), or the ``out`` pair (checked) filled
+    with them."""
+    if out is None:
+        return score, slots
+    _check_out_pair(score.device, score.shape[0], out)
+    return out[0].copy_(score), out[1].copy_(slots)
 
 
 def _launch(fn, cols, outs, n: int, request: int, gpus_per_node: int,
@@ -89,22 +130,36 @@ def _launch(fn, cols, outs, n: int, request: int, gpus_per_node: int,
         raise RuntimeError(f"{fn.__name__} failed: CUDA error {err}")
 
 
+def noop(device: torch.device) -> None:
+    """Launch the empty kernel on ``device``'s current stream, through
+    the same ctypes path as the passes (not counted: it is no pass)."""
+    fn = build().node_score_noop_launch
+    with torch.cuda.device(device):
+        err = fn(torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"node_score_noop_launch failed: CUDA error {err}")
+
+
 def node_scores(free: torch.Tensor, used: torch.Tensor, mask: torch.Tensor,
                 group_load: torch.Tensor, topo_pref: torch.Tensor, *,
                 request: int, gpus_per_node: int, w_used: float,
-                w_fit: float, w_group: float, w_topo: float
-                ) -> torch.Tensor:
+                w_fit: float, w_group: float, w_topo: float,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Score-only pass (per-pod path): (n,) f32, ``NEG_INF`` where
     invalid.  Columns: int32 free/used, bool mask, f32 group_load and
-    topo_pref, all 1-D, contiguous, on one device."""
+    topo_pref, all 1-D, contiguous, on one device.  ``out``, if given,
+    is a contiguous (n,) f32 tensor on that device; it is filled and
+    returned."""
     w = dict(w_used=w_used, w_fit=w_fit, w_group=w_group, w_topo=w_topo)
-    if free.device.type == "cpu":
-        return node_scores_ref(free, used, mask, group_load, topo_pref,
-                               request=request, gpus_per_node=gpus_per_node,
-                               **w)
     cols = (free, used, mask, group_load, topo_pref)
+    if free.device.type == "cpu":
+        return fill(node_scores_ref(*cols, request=request,
+                                    gpus_per_node=gpus_per_node, **w), out)
     n = _check(*cols)
-    score = torch.empty(n, dtype=torch.float32, device=free.device)
+    if out is not None:
+        _check_like(free.device, n, ((out, torch.float32, "out"),))
+    score = out if out is not None else torch.empty(
+        n, dtype=torch.float32, device=free.device)
     if n == 0:
         return score
     _launch(build().node_scores_launch, cols, (score,), n, request,
@@ -117,19 +172,26 @@ def node_scores_slots(free: torch.Tensor, used: torch.Tensor,
                       mask: torch.Tensor, group_load: torch.Tensor,
                       topo_pref: torch.Tensor, *, request: int,
                       gpus_per_node: int, w_used: float, w_fit: float,
-                      w_group: float, w_topo: float
+                      w_group: float, w_topo: float,
+                      out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Score + slots pass (batched gang path): ``(scores f32, slots
-    int32)`` with slots = ``free // request`` where valid, else 0."""
+    int32)`` with slots = ``free // request`` where valid, else 0.
+    ``out``, if given, is a ``(scores, slots)`` pair of contiguous (n,)
+    f32 and int32 tensors on the columns' device; it is filled and
+    returned."""
     w = dict(w_used=w_used, w_fit=w_fit, w_group=w_group, w_topo=w_topo)
-    if free.device.type == "cpu":
-        return node_scores_slots_ref(
-            free, used, mask, group_load, topo_pref, request=request,
-            gpus_per_node=gpus_per_node, **w)
     cols = (free, used, mask, group_load, topo_pref)
+    if free.device.type == "cpu":
+        return fill_pair(*node_scores_slots_ref(
+            *cols, request=request, gpus_per_node=gpus_per_node, **w), out)
     n = _check(*cols)
-    score = torch.empty(n, dtype=torch.float32, device=free.device)
-    slots = torch.empty(n, dtype=torch.int32, device=free.device)
+    if out is not None:
+        _check_out_pair(free.device, n, out)
+        score, slots = out
+    else:
+        score = torch.empty(n, dtype=torch.float32, device=free.device)
+        slots = torch.empty(n, dtype=torch.int32, device=free.device)
     if n == 0:
         return score, slots
     _launch(build().node_scores_slots_launch, cols, (score, slots), n,

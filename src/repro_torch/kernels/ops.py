@@ -28,9 +28,18 @@ from .ref import node_scores_ref, node_scores_slots_ref, wkv6_ref
 BACKENDS = ("kernel", "ref")
 
 
+_COLUMN_DTYPES = (torch.int32, torch.int32, torch.bool, torch.float32,
+                  torch.float32)
+
+
 def _columns(free, used, mask, group_load, topo_pref):
     """The kernel's column dtypes, on ``free``'s device (no copy and no
     launch for columns that already have them)."""
+    cols = (free, used, mask, group_load, topo_pref)
+    if all(isinstance(t, torch.Tensor) and t.dtype == dt and t.is_contiguous()
+           for t, dt in zip(cols, _COLUMN_DTYPES)) and all(
+               t.device == free.device for t in cols[1:]):
+        return cols
     free = torch.as_tensor(free)
     dev = free.device
     mask = torch.as_tensor(mask, device=dev)
@@ -58,15 +67,17 @@ def node_scores(free, used, mask, group_load, topo_pref, *, request: int,
                 weights: Optional[ScoreWeights] = None,
                 w_used: float = 0.0, w_fit: float = 0.0,
                 w_group: float = 0.0, w_topo: float = 0.0,
-                backend: str = "kernel") -> torch.Tensor:
+                backend: str = "kernel",
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Fused filter+score over an n-node table; returns (n,) f32 scores
-    with ``NEG_INF`` at invalid nodes."""
+    with ``NEG_INF`` at invalid nodes, written into ``out`` (a contiguous
+    (n,) f32 tensor on the columns' device) when it is given."""
     kw = _kw(request, gpus_per_node, weights, w_used, w_fit, w_group, w_topo)
     cols = _columns(free, used, mask, group_load, topo_pref)
     if backend == "kernel":
-        return _ns.node_scores(*cols, **kw)
+        return _ns.node_scores(*cols, out=out, **kw)
     if backend == "ref":
-        return node_scores_ref(*cols, **kw)
+        return _ns.fill(node_scores_ref(*cols, **kw), out)
     raise ValueError(f"unknown backend {backend!r}; expected {BACKENDS}")
 
 
@@ -75,20 +86,22 @@ def node_scores_and_slots(free, used, mask, group_load, topo_pref, *,
                           weights: Optional[ScoreWeights] = None,
                           w_used: float = 0.0, w_fit: float = 0.0,
                           w_group: float = 0.0, w_topo: float = 0.0,
-                          backend: str = "kernel"):
+                          backend: str = "kernel", out=None):
     """Fused (scores, pod_slots) pass for batched gang placement.
 
     One sweep over the node table yields both the per-node score and the
     number of pod slots ``floor(free / request)`` each node contributes
     (0 where invalid), feeding the whole-gang top-k slot selection in
-    :func:`repro_torch.core.scoring.select_gang_slots`.
+    :func:`repro_torch.core.scoring.select_gang_slots`.  ``out``, if
+    given, is a (scores f32, slots int32) pair of contiguous (n,) tensors
+    on the columns' device, filled and returned.
     """
     kw = _kw(request, gpus_per_node, weights, w_used, w_fit, w_group, w_topo)
     cols = _columns(free, used, mask, group_load, topo_pref)
     if backend == "kernel":
-        return _ns.node_scores_slots(*cols, **kw)
+        return _ns.node_scores_slots(*cols, out=out, **kw)
     if backend == "ref":
-        return node_scores_slots_ref(*cols, **kw)
+        return _ns.fill_pair(*node_scores_slots_ref(*cols, **kw), out)
     raise ValueError(f"unknown backend {backend!r}; expected {BACKENDS}")
 
 

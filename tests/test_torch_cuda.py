@@ -96,6 +96,129 @@ def test_wrapper_rejects_bad_inputs(cuda):
                                      **dict(kw, request=0))
 
 
+def _slots_np(host, request):
+    free, _, mask = host[:3]
+    return np.where(mask & (free >= request), free // request, 0)
+
+
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 15, 16, 17, 4095, 4096, 4097])
+def test_kernels_bit_exact_at_group_and_tile_edges(cuda, n):
+    """Both sides of the vector path's 4-node group, the seam's 16-node
+    padding and the 1,024 nodes a block of the vector path covers: the
+    ragged tail is scored in the same kernel."""
+    for g in (8, 6):
+        host, cols = _columns(n, g, seed=n * 3 + g, device=cuda)
+        for request in range(1, g + 1):
+            for w in WEIGHTS:
+                kw = _kw(w, request, g)
+                want = scoring.node_scores_np(*host, request, g, w)
+                s1 = node_score.node_scores(*cols, **kw)
+                s2, sl = node_score.node_scores_slots(*cols, **kw)
+                for s in (s1, s2):
+                    np.testing.assert_array_equal(
+                        s.cpu().numpy().view(np.int32), want.view(np.int32))
+                np.testing.assert_array_equal(sl.cpu().numpy(),
+                                              _slots_np(host, request))
+
+
+def _off_by_one(t):
+    """A copy of ``t`` that is a view one element past the start of its
+    buffer: contiguous but not 16-byte aligned."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    return buf[1:].copy_(t)
+
+
+@pytest.mark.parametrize("n", [1, 5, 17, 4097, 300_001])
+def test_kernels_bit_exact_on_unaligned_views(cuda, n):
+    """Columns and outputs at an odd element offset take the kernel's
+    scalar path; any one unaligned column is enough."""
+    g = 6
+    host, cols = _columns(n, g, seed=n, device=cuda)
+    for i in range(len(cols) + 1):
+        # column i off alignment, or (i == 5) only the outputs
+        ucols = tuple(_off_by_one(c) if j == i else c
+                      for j, c in enumerate(cols))
+        shift = _off_by_one if i == len(cols) else (lambda t: t)
+        out = shift(torch.zeros(n, device=cuda))
+        pair = (shift(torch.zeros(n, device=cuda)),
+                shift(torch.zeros(n, dtype=torch.int32, device=cuda)))
+        assert any(t.data_ptr() % 16 for t in (*ucols, out))
+        assert any(t.data_ptr() % 16 for t in (*ucols, *pair))
+        for request in (1, 2, 4):
+            w = WEIGHTS[(i + request) % len(WEIGHTS)]
+            kw = _kw(w, request, g)
+            want = scoring.node_scores_np(*host, request, g, w)
+            s1 = node_score.node_scores(*ucols, **kw, out=out)
+            s2, sl = node_score.node_scores_slots(*ucols, **kw, out=pair)
+            assert s1 is out and s2 is pair[0] and sl is pair[1]
+            for s in (s1, s2):
+                np.testing.assert_array_equal(
+                    s.cpu().numpy().view(np.int32), want.view(np.int32))
+            np.testing.assert_array_equal(sl.cpu().numpy(),
+                                          _slots_np(host, request))
+
+
+def test_out_rejects_wrong_dtype_device_or_shape(cuda):
+    _, cols = _columns(64, 8, seed=6, device=cuda)
+    kw = _kw(scoring.E_BINPACK, 2, 8)
+    f32 = torch.empty(64, dtype=torch.float32, device=cuda)
+    i32 = torch.empty(64, dtype=torch.int32, device=cuda)
+    before = (node_score.node_scores.launches,
+              node_score.node_scores_slots.launches)
+    with pytest.raises(TypeError, match="out"):
+        node_score.node_scores(*cols, **kw, out=f32.double())
+    with pytest.raises(ValueError, match="on cpu"):
+        node_score.node_scores(*cols, **kw, out=f32.cpu())
+    with pytest.raises(ValueError, match="shape"):
+        node_score.node_scores(*cols, **kw, out=f32[:63])
+    with pytest.raises(TypeError, match=r"out\[1\]"):
+        node_score.node_scores_slots(*cols, **kw, out=(f32, i32.float()))
+    with pytest.raises(TypeError, match=r"out\[0\]"):
+        node_score.node_scores_slots(*cols, **kw, out=(i32, i32))
+    with pytest.raises(ValueError, match="on cpu"):
+        node_score.node_scores_slots(*cols, **kw, out=(f32, i32.cpu()))
+    with pytest.raises(ValueError, match="contiguous"):
+        node_score.node_scores(*cols, **kw, out=torch.empty(
+            128, device=cuda)[::2])
+    with pytest.raises(TypeError, match="out"):
+        ops.node_scores(*cols, **dict(kw, backend="ref"), out=i32)
+    assert (node_score.node_scores.launches,
+            node_score.node_scores_slots.launches) == before
+
+
+@pytest.mark.parametrize("backend", ["kernel", "ref"])
+def test_packed_seam_on_the_card_equals_numpy(cuda, backend):
+    """The seam on the card: exact, owned host arrays, and one launch a
+    pass (none for the plain version)."""
+    w = scoring.ScoreWeights(0.3, -0.2, 1.1, -0.7)
+    kept = []
+    for n in (1, 17, 33, 160, 4097, 100_000, 33):
+        host, _ = _columns(n, 6, seed=n, device=cuda)
+        for request in (1, 2, 3):
+            before = (node_score.node_scores.launches,
+                      node_score.node_scores_slots.launches)
+            s = scoring.compute_node_scores(*host, request, 6, w,
+                                            backend=backend)
+            s2, sl = scoring.compute_node_scores_and_slots(
+                *host, request, 6, w, backend=backend)
+            launched = (backend == "kernel",) * 2
+            assert tuple(b - a for a, b in zip(before, (
+                node_score.node_scores.launches,
+                node_score.node_scores_slots.launches))) == launched
+            want = scoring.node_scores_np(*host, request, 6, w)
+            for got in (s, s2):
+                assert got.dtype == np.float32 and got.flags.owndata
+                np.testing.assert_array_equal(got.view(np.int32),
+                                              want.view(np.int32))
+            assert sl.dtype == np.int64
+            np.testing.assert_array_equal(sl, _slots_np(host, request))
+            kept.append((s2, s2.copy()))
+    assert all(np.array_equal(a, b) for a, b in kept)
+    st = scoring._staging_for(None)
+    assert st.host_in.is_pinned() and st.host_out.is_pinned()
+    assert st.dev_in.device.type == "cuda"
+
+
 def test_rsch_on_the_card_matches_host_numpy(cuda):
     import repro_torch.core as T
     from repro_torch.core.snapshot import FullSnapshotter
