@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch/CUDA port (``src/repro_torch``).
 
-Drives the port's main paths on one CUDA card — the scheduling cycle and
-rwkv6-3b serving — and holds every kernel of those paths against its
-plain torch version::
+Drives the port's main paths on one CUDA card — the scheduling cycle,
+rwkv6-3b serving and glm4-9b serving — and holds every kernel of those
+paths against its plain torch version::
 
     python3 chip_smoke.py
 
@@ -58,7 +58,23 @@ Phases, each printed as one JSON line on stdout:
              split their wall time into device busy time and the rest;
 9. serve-parity — solo prefills of the first two prompts with the WKV
              kernel and with the plain step loop: logits, states and
-             greedy tokens agree.
+             greedy tokens agree;
+10. dense-serve — glm4-9b at full width (f32, seeded weights drawn on
+             the card, 9.4e9 parameters) behind a ``ServeEngine(
+             batch_size=4, max_seq=1024)``: the same 8 prompt lengths and
+             16 new tokens each; the dense path has no hand-written
+             kernel (attention, RoPE and the MLP are plain torch), so its
+             launch counts read 0;
+11. dense-breakdown — a profiled prefill and decode step: device busy
+             against wall time, and the device time of the weight GEMMs
+             (``aten::mm``) against attention's score and value products
+             (``aten::bmm``) and the rest;
+12. dense-parity — prefill of 64 tokens and decode of 32 more against
+             ``forward`` on all 96 (1e-3 of max|logit|); each batched
+             request's greedy tokens against its solo (B=1) run; and a
+             2-layer cut at full width on the card against the same
+             weights on the host (prefill logits 1e-4 of their max,
+             greedy tokens equal).
 
 Then the ``{"kernels": [...]}`` line (the node-score rows also carry
 each kernel's own device duration from a ``torch.profiler`` trace), the
@@ -107,6 +123,12 @@ WKV_TOL_LONG = 1e-4     # max|Δ| / max|o_ref| at T = 513 and the serve shape
 SERVE_ARCH = "rwkv6-3b"
 SERVE_REQUESTS, SERVE_BATCH, SERVE_NEW = 8, 4, 16
 PARITY_TOL = 1e-3       # kernel against plain scan, relative to max|x|
+DENSE_ARCH = "glm4-9b"
+DENSE_MAX_SEQ = 1024
+DENSE_PREFIX, DENSE_SEQ = 64, 96     # decode against forward
+DENSE_CUT_LAYERS = 2    # card against host at full width
+DENSE_HOST_TOL = 1e-4   # card against host, relative to max|logit|
+DENSE_HOST_STEPS = 8
 
 
 def emit(obj) -> None:
@@ -175,8 +197,13 @@ def profiled_kernel_ms(torch, fn, flush, kernel: str, iters: int = 20
     """Mean device duration of the kernel named ``kernel`` that ``fn``
     launches, from the ``torch.profiler`` trace of ``iters`` calls, each
     after ``flush`` is rewritten: the kernel's own time on the card, with
-    no launch or event overhead in it."""
+    no launch or event overhead in it.  Three rewrites of ``flush`` alone
+    open the window: a trace taken right after the glm4-9b phases once
+    held 19 of its 20 iterations."""
     def run():
+        for _ in range(3):
+            flush.add_(1)
+        torch.cuda.synchronize()
         for _ in range(iters):
             flush.add_(1)
             fn()
@@ -258,8 +285,9 @@ class CallRecorder:
 def device_busy_ms(torch, run) -> dict:
     """Device time by kind over ``run()`` from ``torch.profiler``:
     kernels vs memory copies, in ms (0 where the trace has no device
-    events), the five device entries that took longest, and the number
-    of host-to-device and device-to-host copies."""
+    events), the five device entries that took longest, the number of
+    host-to-device and device-to-host copies, and ``ops``: the device
+    ms of the kernels each host op (``aten::mm``, ...) launched itself."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -268,12 +296,15 @@ def device_busy_ms(torch, run) -> dict:
     kernel = copy = 0.0
     entries = []
     copies = {"HtoD": 0, "DtoH": 0}
+    ops = {}
     for e in prof.key_averages():
-        if "CUDA" not in str(e.device_type):
-            continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = e.self_cuda_time_total
+        if "CUDA" not in str(e.device_type):
+            if us > 0:
+                ops[e.key] = us / 1e3
+            continue
         entries.append((us / 1e3, e.count, e.key[:80]))
         for way in copies:
             if "memcpy" in e.key.lower() and way in e.key:
@@ -285,7 +316,7 @@ def device_busy_ms(torch, run) -> dict:
     top = [{"name": k, "ms": ms, "count": n}
            for ms, n, k in sorted(entries, reverse=True)[:5]]
     return {"kernel_ms": kernel, "copy_ms": copy, "top": top,
-            "copies": copies}
+            "copies": copies, "ops": ops}
 
 
 def wkv_inputs(np, torch, shape, types, seed: int = 0, strong=False):
@@ -337,10 +368,232 @@ def ptxas_summary(log: str) -> list:
     return out
 
 
+def timed(torch, fn, log):
+    """``fn`` with a synchronised wall clock around each call; appends
+    (seconds, logits finite, logits) to ``log``."""
+    def wrapped(*args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, cache = fn(*args)
+        torch.cuda.synchronize()
+        log.append((time.perf_counter() - t,
+                    bool(torch.isfinite(logits).all()), logits))
+        return logits, cache
+    return wrapped
+
+
+def serve_run(torch, cfg, params, dev, reqs, timings=None, batch_size=4,
+              max_seq=1024):
+    """Serve ``reqs`` ((prompt, new tokens) pairs) through a fresh
+    ``ServeEngine``; with ``timings`` its prefill and decode calls are
+    timed into ``timings["_prefill"]`` and ``["_decode"]``.  Returns
+    (engine, finished requests, wall seconds)."""
+    from repro_torch.serve import Request, ServeEngine
+    eng = ServeEngine(cfg, params, batch_size=batch_size, max_seq=max_seq,
+                      device=dev)
+    if timings is not None:
+        for name in ("_prefill", "_decode"):
+            setattr(eng, name, timed(torch, getattr(eng, name),
+                                     timings[name]))
+    for uid, (prompt, new) in enumerate(reqs):
+        eng.submit(Request(uid=uid, prompt=prompt, max_new_tokens=new))
+    t = time.perf_counter()
+    done = eng.run_until_drained()
+    torch.cuda.synchronize()
+    return eng, done, time.perf_counter() - t
+
+
+def serve_prompts(np, vocab: int, n: int):
+    """The serve phases' prompts: ``n`` of 64-512 tokens from
+    ``default_rng(0)``."""
+    rng = np.random.default_rng(0)
+    lens = rng.integers(64, 513, size=n)
+    return lens, [rng.integers(0, vocab, size=int(k)).astype(np.int32)
+                  for k in lens]
+
+
+def top2_gap(logits) -> float:
+    top = logits.float().topk(2).values
+    return float(top[0] - top[1])
+
+
 def rel_err(a, b) -> float:
     """max|a - b| / max|b| (0 when b is all zero)."""
     den = float(b.abs().max())
     return float((a - b).abs().max()) / den if den else 0.0
+
+
+def run_dense(torch, np, dev, cfg, counters, smi: str) -> None:
+    """Phases 10-12: ``cfg`` (glm4-9b FULL) served, profiled and held
+    against ``forward``, its solo runs and the host.  ``counters`` are
+    the kernel wrappers, whose launches are read over the served run."""
+    import dataclasses
+    from repro_torch.models import Model
+
+    # -- 10. dense-serve -------------------------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(0), torch.float32)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    params = model.state_dict()
+    n_params = model.n_params()
+    check(n_params == cfg.n_params(),
+          f"{cfg.name}: {n_params} parameters, the config says "
+          f"{cfg.n_params()}")
+    lens, prompts = serve_prompts(np, cfg.vocab, SERVE_REQUESTS)
+
+    def engine_run(reqs, timings=None, batch_size=SERVE_BATCH):
+        return serve_run(torch, cfg, params, dev, reqs, timings,
+                         batch_size=batch_size, max_seq=DENSE_MAX_SEQ)
+
+    engine_run([(prompts[0][:64], 2), (prompts[1][:64], 2)])   # warm-up
+    timings = {"_prefill": [], "_decode": []}
+    for c in counters:
+        c.launches = 0
+    engine, finished, wall = engine_run([(p, SERVE_NEW) for p in prompts],
+                                        timings)
+    launches = {c.__name__: c.launches for c in counters}
+    check(len(finished) == SERVE_REQUESTS
+          and all(len(r.generated) == SERVE_NEW for r in finished),
+          f"{cfg.name} serve left requests unfinished")
+    check(all(ok for log in timings.values() for _, ok, _ in log),
+          f"{cfg.name} serve produced non-finite logits")
+    pre_s = [t for t, _, _ in timings["_prefill"]]
+    dec_s = [t for t, _, _ in timings["_decode"]]
+    longest = int(np.argmax(lens))
+    emit({"phase": "dense-serve", "arch": cfg.name, "dtype": "float32",
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+          "params": n_params,
+          "param_bytes": sum(t.numel() * t.element_size()
+                             for t in params.values()),
+          "init_s": init_s, "requests": len(finished),
+          "max_seq": DENSE_MAX_SEQ,
+          "cache_window": engine.model.cache_window(DENSE_MAX_SEQ),
+          "prompt_tokens": int(lens.sum()),
+          "prompt_lens": [int(n) for n in lens],
+          "prefill_calls": engine.prefill_calls,
+          "prefill_ms_per_request": float(np.mean(pre_s)) * 1e3,
+          "prefill_ms": [t * 1e3 for t in pre_s],
+          "prefill_tokens_per_s": float(lens.sum()) / sum(pre_s),
+          "first_prompt": {"len": int(lens[0]), "ms": pre_s[0] * 1e3},
+          "longest_prompt": {"len": int(lens[longest]),
+                             "ms": pre_s[longest] * 1e3},
+          "decode_steps": len(dec_s), "decode_batch": SERVE_BATCH,
+          "decode_ms_per_step_median": float(np.median(dec_s)) * 1e3,
+          "decode_ms_per_step_mean": float(np.mean(dec_s)) * 1e3,
+          "wall_s": wall, "launches": launches,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "nvidia_smi": smi})
+
+    # -- 11. dense-breakdown: one profiled prefill and decode step -------
+    def split(busy, wall_ms):
+        """Device ms of the weight GEMMs (``aten::mm``), of attention's
+        score and value products (``aten::bmm``: the einsums of
+        ``chunked_attention`` and ``decode_attention``) and of the rest."""
+        ops = busy["ops"]
+        gemm = sum(ms for k, ms in ops.items()
+                   if k in ("aten::mm", "aten::addmm"))
+        attn = ops.get("aten::bmm", 0.0)
+        kernel = busy["kernel_ms"]
+        top_ops = sorted(ops.items(), key=lambda kv: -kv[1])[:8]
+        return {"wall_ms": wall_ms, "kernel_ms": kernel,
+                "copy_ms": busy["copy_ms"],
+                "busy_share": (kernel + busy["copy_ms"]) / wall_ms,
+                "gemm_ms": gemm, "attention_products_ms": attn,
+                "other_ms": kernel - gemm - attn,
+                "gemm_share": gemm / kernel if kernel else None,
+                "attention_products_share": attn / kernel if kernel else None,
+                "top": busy["top"], "top_ops": top_ops}
+
+    first = {"tokens": torch.from_numpy(prompts[0][None])}
+    pre_busy = device_busy_ms(torch, lambda: engine.model.prefill(
+        first, seq_len=DENSE_MAX_SEQ))
+    dec_busy = device_busy_ms(torch, lambda: engine.model.decode_step(
+        engine.cache, torch.zeros(SERVE_BATCH, dtype=torch.int32)))
+    emit({"phase": "dense-breakdown",
+          "prefill": {"prompt_len": int(lens[0]),
+                      **split(pre_busy, pre_s[0] * 1e3)},
+          "decode": {"batch": SERVE_BATCH,
+                     **split(dec_busy, float(np.median(dec_s)) * 1e3)}})
+
+    # -- 12. dense-parity --------------------------------------------------
+    # Decode against forward (tests/test_models.py at full width).
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, size=(1, DENSE_SEQ)).astype(np.int32))
+    m = engine.model
+    full, _ = m({"tokens": toks})
+    scale = float(full.abs().max())
+    lg, cache = m.prefill({"tokens": toks[:, :DENSE_PREFIX]},
+                          seq_len=DENSE_SEQ)
+    errs = [float((lg - full[:, DENSE_PREFIX - 1]).abs().max())]
+    for i in range(DENSE_PREFIX, DENSE_SEQ):
+        lg, cache = m.decode_step(cache, toks[:, i])
+        errs.append(float((lg - full[:, i]).abs().max()))
+    decode_rel = max(errs) / scale
+    check(decode_rel <= PARITY_TOL,
+          f"{cfg.name} prefill+decode differs from forward by "
+          f"{decode_rel} of max|logit|")
+    del full, cache, lg
+
+    # Slot independence: each batched request against its solo run.
+    batched = {r.uid: r.generated for r in finished}
+    slots = []
+    for uid, prompt in enumerate(prompts):
+        log = {"_prefill": [], "_decode": []}
+        _, [solo], _ = engine_run([(prompt, SERVE_NEW)], log, batch_size=1)
+        diff = next((j for j, (a, b) in enumerate(zip(solo.generated,
+                                                      batched[uid]))
+                     if a != b), None)
+        gap = None
+        if diff is not None:
+            logits = [lgt for _, _, lgt in log["_prefill"] + log["_decode"]]
+            lgt = logits[diff][0]
+            gap = top2_gap(lgt) / float(lgt.abs().max())
+            check(gap < PARITY_TOL,
+                  f"request {uid}: batched and solo tokens differ at step "
+                  f"{diff} with a top-2 gap of {gap} of max|logit|")
+        slots.append({"uid": uid, "tokens_equal": diff is None,
+                      "first_diff_step": diff, "solo_top2_gap_rel": gap})
+    del engine, m, model, params, timings
+    torch.cuda.empty_cache()
+
+    # Card against host: a 2-layer cut at full width, the same weights.
+    cut = dataclasses.replace(cfg, n_layers=DENSE_CUT_LAYERS)
+    card = Model(cut, device=dev).init(
+        torch.Generator(device=dev).manual_seed(1), torch.float32)
+    host = Model(cut, device="cpu")
+    host.load_state_dict({k: t.cpu() for k, t in card.state_dict().items()},
+                         assign=True)
+    batch = {"tokens": torch.from_numpy(prompts[0][None, :DENSE_PREFIX])}
+    t = time.perf_counter()
+    lc, cc = card.prefill(batch, seq_len=DENSE_SEQ)
+    lh, ch = host.prefill(batch, seq_len=DENSE_SEQ)
+    host_s = time.perf_counter() - t
+    host_rel = rel_err(lc.cpu(), lh)
+    check(host_rel <= DENSE_HOST_TOL,
+          f"{cut.name} x{DENSE_CUT_LAYERS} prefill on the card differs from "
+          f"the host by {host_rel} of max|logit|")
+    toks_c, toks_h = [], []
+    for _ in range(DENSE_HOST_STEPS):
+        toks_c.append(int(torch.argmax(lc[0])))
+        toks_h.append(int(torch.argmax(lh[0])))
+        lc, cc = card.decode_step(cc, torch.tensor([toks_c[-1]]))
+        lh, ch = host.decode_step(ch, torch.tensor([toks_h[-1]]))
+    check(toks_c == toks_h,
+          f"greedy tokens differ between card and host: {toks_c} {toks_h}")
+    emit({"phase": "dense-parity", "tol": PARITY_TOL,
+          "decode_vs_forward": {"prefix": DENSE_PREFIX, "seq": DENSE_SEQ,
+                                "max_abs_err": max(errs),
+                                "max_abs_logit": scale, "rel": decode_rel},
+          "slot_independence": slots,
+          "card_vs_host": {"layers": DENSE_CUT_LAYERS,
+                           "d_model": cut.d_model, "vocab": cut.vocab,
+                           "prompt_len": DENSE_PREFIX, "logit_rel": host_rel,
+                           "tol": DENSE_HOST_TOL, "tokens": toks_c,
+                           "tokens_equal": True, "seconds": host_s}})
 
 
 def main() -> int:
@@ -359,7 +612,6 @@ def main() -> int:
                                          node_scores_slots_ref,
                                          wkv6_chunked_ref, wkv6_ref)
     from repro_torch.models import Model
-    from repro_torch.serve import Request, ServeEngine
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -764,37 +1016,11 @@ def main() -> int:
     params = model.state_dict()
     n_params = model.n_params()
     param_bytes = sum(t.numel() * t.element_size() for t in params.values())
-    rng = np.random.default_rng(0)
-    lens = rng.integers(64, 513, size=SERVE_REQUESTS)
-    prompts = [rng.integers(0, cfg.vocab, size=int(n)).astype(np.int32)
-               for n in lens]
+    lens, prompts = serve_prompts(np, cfg.vocab, SERVE_REQUESTS)
 
     def engine_run(reqs, timings=None):
-        eng = ServeEngine(cfg, params, batch_size=SERVE_BATCH,
-                          max_seq=1024, device=dev)
-        if timings is not None:
-            for name in ("_prefill", "_decode"):
-                setattr(eng, name, timed(getattr(eng, name),
-                                         timings[name]))
-        for uid, (prompt, new) in enumerate(reqs):
-            eng.submit(Request(uid=uid, prompt=prompt, max_new_tokens=new))
-        t = time.perf_counter()
-        done = eng.run_until_drained()
-        torch.cuda.synchronize()
-        return eng, done, time.perf_counter() - t
-
-    def timed(fn, log):
-        """``fn`` with a synchronised wall clock around each call, and a
-        check that the logits it returns are finite."""
-        def wrapped(*args):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            logits, cache = fn(*args)
-            torch.cuda.synchronize()
-            log.append((time.perf_counter() - t,
-                        bool(torch.isfinite(logits).all())))
-            return logits, cache
-        return wrapped
+        return serve_run(torch, cfg, params, dev, reqs, timings,
+                         batch_size=SERVE_BATCH)
 
     engine_run([(prompts[0][:64], 2), (prompts[1][:64], 2)])   # warm-up
     timings = {"_prefill": [], "_decode": []}
@@ -819,10 +1045,10 @@ def main() -> int:
     check(len(finished) == SERVE_REQUESTS
           and all(len(r.generated) == SERVE_NEW for r in finished),
           "serve left requests unfinished")
-    check(all(ok for log in timings.values() for _, ok in log),
+    check(all(ok for log in timings.values() for _, ok, _ in log),
           "serve produced non-finite logits")
-    pre_s = [s for s, _ in timings["_prefill"]]
-    dec_s = [s for s, _ in timings["_decode"]]
+    pre_s = [s for s, _, _ in timings["_prefill"]]
+    dec_s = [s for s, _, _ in timings["_decode"]]
     emit({"phase": "serve", "arch": SERVE_ARCH, "dtype": "float32",
           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
           "params": n_params, "param_bytes": param_bytes,
@@ -862,10 +1088,6 @@ def main() -> int:
     kern_model = engine.model
     scan_model = Model(cfg, device=dev, wkv_backend="scan")
     scan_model.load_state_dict(params, assign=True)
-
-    def top2_gap(logits) -> float:
-        top = torch.topk(logits.float(), 2).values
-        return float(top[0] - top[1])
 
     parity = []
     for prompt in prompts[:2]:
@@ -909,7 +1131,14 @@ def main() -> int:
                        "scan_top2_gap_rel": gap,
                        "prefill_s_kernel": k_s, "prefill_s_scan": s_s})
     emit({"phase": "serve-parity", "tol": PARITY_TOL, "cases": parity})
-    del scan_model, kern_model, engine, model, params
+    del scan_model, kern_model, engine, model, params, ck, cs, lk, ls
+    torch.cuda.empty_cache()
+
+    # -- 10-12. glm4-9b at full width: serve, breakdown, parity ---------
+    counters = (node_score.node_scores, node_score.node_scores_slots,
+                wkv6.wkv6, wkv6.wkv6_step)
+    run_dense(torch, np, dev, get_arch(DENSE_ARCH), counters, smi)
+    torch.cuda.empty_cache()
 
     # -- kernels line: timed at the 1M-node full-width pass ------------
     full = scale[-1]
@@ -969,7 +1198,10 @@ def main() -> int:
     print(json.dumps({"kernels": kernels,
                       "library_note": "no single PyTorch call computes the "
                                       "fused filter+score(+slots) pass or "
-                                      "the WKV recurrence"}),
+                                      "the WKV recurrence",
+                      "dense_note": f"the {DENSE_ARCH} path runs no "
+                                    "hand-written kernel: attention, RoPE "
+                                    "and the MLP are plain torch"}),
           flush=True)
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,7 +1,7 @@
 """Serving from the command line: batched requests through the
 ServeEngine.
 
-``python -m repro_torch.launch.serve --arch rwkv6-3b --requests 12``
+``python -m repro_torch.launch.serve --arch glm4-9b --requests 12``
 serves the reduced (smoke) config of an arch with continuous batching,
 weights drawn from ``--seed``, on the CUDA device (``--device cpu`` runs
 it on the host); reports throughput and per-request latency in engine
@@ -48,7 +48,7 @@ def serve_demo(arch: str, *, requests: int = 12, batch_size: int = 4,
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="rwkv6-3b")
+    ap.add_argument("--arch", default="glm4-9b")
     ap.add_argument("--requests", type=int, default=12)
     ap.add_argument("--batch-size", type=int, default=4)
     ap.add_argument("--max-new", type=int, default=8)

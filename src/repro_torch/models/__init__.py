@@ -1,4 +1,4 @@
-"""Model zoo of the port: the families ported so far (``ssm``)."""
+"""Model zoo of the port: the families ported so far (``dense``, ``ssm``)."""
 
 from .model import Model
 

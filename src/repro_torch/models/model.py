@@ -1,19 +1,22 @@
 """The model zoo: ``ArchConfig`` -> init / forward / prefill / decode.
 
 The counterpart of the reference package's ``models/model.py`` for the
-families ported so far: the ``ssm`` family (RWKV-6).  The others raise
-``NotImplementedError`` until their slice lands (ROADMAP queue 1,
-item 5).
+families ported so far: ``dense`` (RoPE, GQA attention, SwiGLU MLP) and
+``ssm`` (RWKV-6).  The others raise ``NotImplementedError`` until their
+slice lands (ROADMAP queue 1, item 5).
 
 Where the reference stacks per-layer parameters along a leading ``L``
 axis and scans over them with ``lax.scan``, the port keeps one
-``nn.ParameterDict`` per layer in an ``nn.ModuleList`` and loops in
-Python.  Parameter names are the reference's keys (``embed``,
-``layers.<l>.<key>``, ``final_norm``, ``lm_head``), so
-:func:`repro_torch.models.bridge.params_from_reference` carries its
-weights across.  The cache keeps the reference's layout and keys:
-``layers.state (L,B,H,n,n) f32``, ``layers.x_last_t`` and ``x_last_c``
-``(L,B,d)``, and ``t``.
+``nn.ParameterDict`` per layer (nested where the reference's block is:
+``attn`` and ``mlp`` of a dense block) in an ``nn.ModuleList`` and
+loops in Python.  Parameter names are the reference's keys (``embed``,
+``layers.<l>.<key>``, ``layers.<l>.attn.wq``, ``final_norm``,
+``lm_head``), so :func:`repro_torch.models.bridge.params_from_reference`
+carries its weights across.  The cache keeps the reference's layout and
+keys: for ``dense`` a ring-buffer KV cache ``layers.k`` and ``layers.v``
+``(L,B,W,Kh,hd)``; for ``ssm`` ``layers.state (L,B,H,n,n) f32``,
+``layers.x_last_t`` and ``x_last_c`` ``(L,B,d)``; and the clock ``t``
+(a scalar, or ``(B,)`` per-row clocks as the serving engine keeps).
 
 A ``Model`` is built on the meta device, so it holds no memory until
 :meth:`Model.init` draws its weights or ``load_state_dict(...,
@@ -31,10 +34,13 @@ from torch import nn
 from ..configs.base import ArchConfig
 from ..device import resolve_device
 from . import rwkv6 as rw
-from .layers import dense_init, embed, init_embed, rmsnorm
+from .layers import (decode_attention, dense_init, embed, init_attn,
+                     init_embed, init_mlp, mlp, prefill_attention, rmsnorm,
+                     self_attention, spec_attn, spec_mlp)
 
 PyTree = Any
 WKV_BACKENDS = rw.TIME_MIX_BACKENDS
+FAMILIES = ("dense", "ssm")
 
 
 def _residual_out_scale(n_layers: int) -> float:
@@ -45,6 +51,23 @@ def _residual_out_scale(n_layers: int) -> float:
 def _meta(*shape: int) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, device="meta"),
                         requires_grad=False)
+
+
+def _meta_tree(shapes: Dict[str, Any]) -> nn.ParameterDict:
+    """A (nested) dict of shapes as a (nested) ParameterDict on meta."""
+    return nn.ParameterDict({
+        k: _meta_tree(s) if isinstance(s, dict) else _meta(*s)
+        for k, s in shapes.items()})
+
+
+def _block_shapes(cfg: ArchConfig, head_dim: int) -> Dict[str, Any]:
+    """One block's parameter shapes, keyed as the reference's block."""
+    d, f = cfg.d_model, cfg.d_ff
+    if cfg.family == "ssm":
+        return rw.spec_rwkv_block(d, f, head_dim)
+    return {"norm1": (d,), "norm2": (d,),
+            "attn": spec_attn(d, cfg.n_heads, cfg.n_kv_heads, head_dim),
+            "mlp": spec_mlp(d, f)}
 
 
 class Model(nn.Module):
@@ -58,7 +81,7 @@ class Model(nn.Module):
     def __init__(self, cfg: ArchConfig, *, device=None,
                  wkv_backend: str = "kernel") -> None:
         super().__init__()
-        if cfg.family != "ssm":
+        if cfg.family not in FAMILIES:
             raise NotImplementedError(
                 f"the {cfg.family} family is not ported yet (ROADMAP "
                 f"queue 1, item 5)")
@@ -70,11 +93,10 @@ class Model(nn.Module):
         self.wkv_backend = wkv_backend
         self.head_dim = cfg.head_dim or 64
         d, V = cfg.d_model, cfg.vocab
-        shapes = rw.spec_rwkv_block(d, cfg.d_ff, self.head_dim)
+        shapes = _block_shapes(cfg, self.head_dim)
         self.embed = _meta(V, d)
-        self.layers = nn.ModuleList(
-            nn.ParameterDict({k: _meta(*s) for k, s in shapes.items()})
-            for _ in range(cfg.n_layers))
+        self.layers = nn.ModuleList(_meta_tree(shapes)
+                                    for _ in range(cfg.n_layers))
         self.final_norm = _meta(d)
         self.lm_head = _meta(d, V)
 
@@ -88,45 +110,84 @@ class Model(nn.Module):
         def put(t: torch.Tensor) -> nn.Parameter:
             return nn.Parameter(t.to(self.device), requires_grad=False)
 
-        rs = _residual_out_scale(cfg.n_layers)
+        def assign(lp: nn.ParameterDict, block: Dict[str, Any]) -> None:
+            for k, t in block.items():
+                if isinstance(t, dict):
+                    assign(lp[k], t)
+                else:
+                    lp[k] = put(t)
+
         self.embed = put(init_embed(generator, cfg.vocab, cfg.d_model,
                                     dtype))
         for lp in self.layers:
-            block = rw.init_rwkv_block(generator, cfg.d_model, cfg.d_ff,
-                                       self.head_dim, dtype, out_scale=rs)
-            for k, t in block.items():
-                lp[k] = put(t)
+            assign(lp, self._init_block(generator, dtype))
         self.final_norm = put(torch.ones(cfg.d_model, dtype=dtype))
         self.lm_head = put(dense_init(generator, (cfg.d_model, cfg.vocab),
                                       dtype, scale=0.02))
         return self
 
+    def _init_block(self, generator: torch.Generator, dtype
+                    ) -> Dict[str, Any]:
+        cfg = self.cfg
+        d, f, hd = cfg.d_model, cfg.d_ff, self.head_dim
+        rs = _residual_out_scale(cfg.n_layers)
+        if cfg.family == "ssm":
+            return rw.init_rwkv_block(generator, d, f, hd, dtype,
+                                      out_scale=rs)
+        return {"norm1": torch.ones(d, dtype=dtype),
+                "norm2": torch.ones(d, dtype=dtype),
+                "attn": init_attn(generator, d, cfg.n_heads,
+                                  cfg.n_kv_heads, hd, dtype, out_scale=rs),
+                "mlp": init_mlp(generator, d, f, dtype, out_scale=rs)}
+
     def n_params(self) -> int:
         return sum(p.numel() for p in self.parameters())
 
     # -- full-sequence pass -------------------------------------------------
-    def _seq_block(self, lp, x: torch.Tensor
-                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """One block over the full sequence; returns (x, cache entry)."""
+    def _seq_block(self, lp, x: torch.Tensor, cache_window: int,
+                   emit_cache: bool
+                   ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+        """One block over the full sequence; returns (x, cache entry or
+        None)."""
         cfg = self.cfg
-        st0 = torch.zeros(rw.rwkv_state_shape(x.shape[0], cfg.d_model,
-                                              self.head_dim),
-                          dtype=torch.float32, device=x.device)
-        xt = rmsnorm(x, lp["ln_t"], cfg.norm_eps)
-        t_out, st, xl_t = rw.time_mix(lp, xt, st0, torch.zeros_like(xt[:, 0]),
-                                      backend=self.wkv_backend)
-        x = x + t_out
-        xc = rmsnorm(x, lp["ln_c"], cfg.norm_eps)
-        c_out, xl_c = rw.channel_mix(lp, xc, torch.zeros_like(xc[:, 0]))
-        x = x + c_out
-        return x, {"state": st, "x_last_t": xl_t, "x_last_c": xl_c}
+        eps = cfg.norm_eps
+        if cfg.family == "ssm":
+            st0 = torch.zeros(rw.rwkv_state_shape(x.shape[0], cfg.d_model,
+                                                  self.head_dim),
+                              dtype=torch.float32, device=x.device)
+            xt = rmsnorm(x, lp["ln_t"], eps)
+            t_out, st, xl_t = rw.time_mix(lp, xt, st0,
+                                          torch.zeros_like(xt[:, 0]),
+                                          backend=self.wkv_backend)
+            x = x + t_out
+            xc = rmsnorm(x, lp["ln_c"], eps)
+            c_out, xl_c = rw.channel_mix(lp, xc, torch.zeros_like(xc[:, 0]))
+            x = x + c_out
+            return x, ({"state": st, "x_last_t": xl_t, "x_last_c": xl_c}
+                       if emit_cache else None)
+        h_in = rmsnorm(x, lp["norm1"], eps)
+        entry = None
+        if emit_cache:
+            a_out, k_c, v_c = prefill_attention(
+                lp["attn"], h_in, cache_window, theta=cfg.rope_theta,
+                window=cfg.window)
+            entry = {"k": k_c, "v": v_c}
+        else:
+            a_out = self_attention(lp["attn"], h_in, theta=cfg.rope_theta,
+                                   window=cfg.window)
+        x = x + a_out
+        x = x + mlp(lp["mlp"], rmsnorm(x, lp["norm2"], eps))
+        return x, entry
 
-    def _run_layers(self, x: torch.Tensor
-                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    def _run_layers(self, x: torch.Tensor, cache_window: int,
+                    emit_cache: bool
+                    ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
         entries = []
         for lp in self.layers:
-            x, entry = self._seq_block(lp, x)
+            x, entry = self._seq_block(lp, x, cache_window, emit_cache)
             entries.append(entry)
+        if not emit_cache:
+            return x, None
         return x, {k: torch.stack([e[k] for e in entries])
                    for k in entries[0]}
 
@@ -136,25 +197,35 @@ class Model(nn.Module):
 
         Returns (logits (B, S, vocab), aux loss scalar)."""
         x = embed(self.embed, batch["tokens"])
-        for lp in self.layers:
-            x, _ = self._seq_block(lp, x)
+        x, _ = self._run_layers(x, cache_window=1, emit_cache=False)
         x = rmsnorm(x, self.final_norm, self.cfg.norm_eps)
         return x @ self.lm_head, torch.zeros((), device=x.device)
 
     # -- caches -----------------------------------------------------------
     def cache_window(self, seq_len: int) -> int:
-        return 1                                # O(1) recurrent state
+        cfg = self.cfg
+        if cfg.family == "ssm":
+            return 1                            # O(1) recurrent state
+        w = cfg.window if cfg.window > 0 else seq_len
+        return min(seq_len, w, cfg.decode_window)
 
     def init_cache(self, B: int, seq_len: int, dtype=torch.float32
                    ) -> PyTree:
         cfg, n = self.cfg, self.head_dim
-        L, d, H = cfg.n_layers, cfg.d_model, cfg.d_model // n
+        L, d = cfg.n_layers, cfg.d_model
         z = dict(device=self.device)
-        return {"layers": {
-                    "state": torch.zeros((L, B, H, n, n),
-                                         dtype=torch.float32, **z),
-                    "x_last_t": torch.zeros((L, B, d), dtype=dtype, **z),
-                    "x_last_c": torch.zeros((L, B, d), dtype=dtype, **z)},
+        if cfg.family == "ssm":
+            H = d // n
+            layers = {
+                "state": torch.zeros((L, B, H, n, n), dtype=torch.float32,
+                                     **z),
+                "x_last_t": torch.zeros((L, B, d), dtype=dtype, **z),
+                "x_last_c": torch.zeros((L, B, d), dtype=dtype, **z)}
+        else:
+            shape = (L, B, self.cache_window(seq_len), cfg.n_kv_heads, n)
+            layers = {"k": torch.zeros(shape, dtype=dtype, **z),
+                      "v": torch.zeros(shape, dtype=dtype, **z)}
+        return {"layers": layers,
                 "t": torch.zeros((), dtype=torch.int32, **z)}
 
     # -- prefill / decode ---------------------------------------------------
@@ -162,11 +233,12 @@ class Model(nn.Module):
     def prefill(self, batch: Dict[str, Any], seq_len: Optional[int] = None
                 ) -> Tuple[torch.Tensor, PyTree]:
         """Run the prompt; return (last-position logits (B, vocab),
-        cache).  ``seq_len`` sizes an attention cache window; the
-        recurrent state of this family needs none."""
+        cache).  ``seq_len`` sizes the KV cache window (defaults to the
+        prompt length, i.e. a full-history cache)."""
         x = embed(self.embed, batch["tokens"])
         S_total = x.shape[1]
-        x, caches = self._run_layers(x)
+        x, caches = self._run_layers(
+            x, self.cache_window(seq_len or S_total), emit_cache=True)
         x = rmsnorm(x, self.final_norm, self.cfg.norm_eps)
         logits = x[:, -1] @ self.lm_head
         return logits, {"layers": caches,
@@ -174,9 +246,17 @@ class Model(nn.Module):
                                           device=x.device)}
 
     def _decode_block(self, lp, x: torch.Tensor,
-                      cache: Dict[str, torch.Tensor]
+                      cache: Dict[str, torch.Tensor], t
                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        eps = self.cfg.norm_eps
+        cfg = self.cfg
+        eps = cfg.norm_eps
+        if cfg.family == "dense":
+            a_out, k_c, v_c = decode_attention(
+                lp["attn"], rmsnorm(x, lp["norm1"], eps), cache["k"],
+                cache["v"], t, theta=cfg.rope_theta, window=cfg.window)
+            x = x + a_out
+            x = x + mlp(lp["mlp"], rmsnorm(x, lp["norm2"], eps))
+            return x, {"k": k_c, "v": v_c}
         xt = rmsnorm(x, lp["ln_t"], eps)
         t_out, st, xl_t = rw.time_mix_decode(lp, xt, cache["state"],
                                              cache["x_last_t"])
@@ -196,7 +276,7 @@ class Model(nn.Module):
         entries = []
         for i, lp in enumerate(self.layers):
             x, entry = self._decode_block(
-                lp, x, {k: c[i] for k, c in layers.items()})
+                lp, x, {k: c[i] for k, c in layers.items()}, cache["t"])
             entries.append(entry)
         x = rmsnorm(x, self.final_norm, self.cfg.norm_eps)
         logits = x[:, -1] @ self.lm_head

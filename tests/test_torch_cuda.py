@@ -425,3 +425,27 @@ def test_rwkv6_serving_on_the_card_matches_the_plain_scan(cuda):
                            max_new_tokens=3))
     assert len(eng.run_until_drained()) == 3
     assert wkv6.wkv6.launches - before == cfg.n_layers * eng.prefill_calls
+
+
+def test_glm4_serving_on_the_card_matches_the_host(cuda):
+    """glm4-9b smoke served on the card gives the greedy tokens the host
+    gives from the same weights, in both admission modes."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import Model
+    from repro_torch.serve import Request, ServeEngine
+    cfg = get_arch("glm4-9b", smoke=True)
+    sd = Model(cfg, device=cuda).init(
+        torch.Generator(device=cuda).manual_seed(0)).state_dict()
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, size=n).astype(np.int32)
+               for n in (5, 40, 17, 9, 70)]
+    for per_slot in (True, False):
+        runs = []
+        for dev in (cuda, torch.device("cpu")):
+            eng = ServeEngine(cfg, {k: t.to(dev) for k, t in sd.items()},
+                              batch_size=2, max_seq=128,
+                              per_slot_prefill=per_slot, device=dev)
+            for i, p in enumerate(prompts):
+                eng.submit(Request(uid=i, prompt=p, max_new_tokens=6))
+            runs.append({r.uid: r.generated for r in eng.run_until_drained()})
+        assert runs[0] == runs[1] and len(runs[0]) == len(prompts)
