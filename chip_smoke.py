@@ -2,8 +2,9 @@
 """Chip smoke for the PyTorch/CUDA port (``src/repro_torch``).
 
 Drives the port's main paths on one CUDA card — the scheduling cycle,
-rwkv6-3b serving and glm4-9b serving — and holds every kernel of those
-paths against its plain torch version::
+rwkv6-3b, glm4-9b, mixtral-8x7b (8 of 32 layers) and hymba-1.5b serving
+— and holds every kernel of those paths against its plain torch
+version::
 
     python3 chip_smoke.py
 
@@ -74,7 +75,35 @@ Phases, each printed as one JSON line on stdout:
              request's greedy tokens against its solo (B=1) run; and a
              2-layer cut at full width on the card against the same
              weights on the host (prefill logits 1e-4 of their max,
-             greedy tokens equal).
+             greedy tokens equal);
+13. moe-serve — mixtral-8x7b at full width cut to 8 of its 32 layers
+             (``mixtral-8x7b-l8``: 11.87e9 parameters, 47.5 GB in f32,
+             drawn on the card after glm4-9b is freed), the same 8
+             requests and engine; beside the dense phase's numbers, the
+             assignments the prefills dropped at capacity factor 1.25
+             (by layer) and a decode step's bytes bound;
+14. moe-breakdown — a profiled prefill and decode step: device busy
+             against wall time, the expert SwiGLU's device ms (inside
+             ``moe.experts``: its ``bmm``), the rest of ``moe_ffn``
+             (dispatch: router, sort, cumsum, gathers, one-hot, combine),
+             the weight GEMMs outside it (``aten::mm``), attention's
+             products (``aten::bmm``) and the rest;
+15. moe-parity — the dense-parity checks on the cut, decode against
+             forward at capacity factor E/k (4.0: nothing drops, so the
+             identity holds) and batched against solo at the config's
+             1.25, with a 1-layer cut on the host (6.9 GB); then the same
+             three on the llama4-maverick smoke config (top-1 routing);
+16. hybrid-serve — hymba-1.5b FULL (1,314,257,600 parameters, 5.3 GB in
+             f32, not cut), the same 8 requests and engine;
+17. hybrid-breakdown — a profiled prefill and decode step as in 11,
+             with the device ms inside ``hymba.selective_scan`` (the
+             loop over t) and ``hymba.ssm_step``, and the scan loop's
+             share of an unprofiled prefill's wall time (the card
+             synchronised around each layer's loop);
+18. hybrid-parity — the dense-parity checks, with a 2-layer cut on the
+             host.  The moe and hybrid paths run no hand-written kernel
+             (the reference's are plain ``jnp``), so their launch counts
+             read 0.
 
 Then the ``{"kernels": [...]}`` line (the node-score rows also carry
 each kernel's own device duration from a ``torch.profiler`` trace), the
@@ -85,6 +114,8 @@ exits 2 before doing anything.
 
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -129,10 +160,26 @@ DENSE_PREFIX, DENSE_SEQ = 64, 96     # decode against forward
 DENSE_CUT_LAYERS = 2    # card against host at full width
 DENSE_HOST_TOL = 1e-4   # card against host, relative to max|logit|
 DENSE_HOST_STEPS = 8
+MOE_ARCH = "mixtral-8x7b"
+# 8 of 32 layers at full width: 47.5 GB of f32 weights.  The whole model
+# is 186.8 GB in f32 (93.4 GB in bf16) and fits no card; 12 layers (70.7
+# GB) leave too little beside the activations.
+MOE_CUT_LAYERS = 8
+MOE_HOST_LAYERS = 1     # card against host at full width: 6.9 GB on the host
+MOE_TOP1_ARCH = "llama4-maverick-400b-a17b"   # its smoke config: top-1
+HYBRID_ARCH = "hymba-1.5b"
+HYBRID_HOST_LAYERS = 2
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def free_memory(torch) -> None:
+    """Return what the last phase dropped to the card: collect unreachable
+    cycles first, so that the next phase's peak memory is its own."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def check(ok: bool, msg: str) -> None:
@@ -198,8 +245,10 @@ def profiled_kernel_ms(torch, fn, flush, kernel: str, iters: int = 20
     launches, from the ``torch.profiler`` trace of ``iters`` calls, each
     after ``flush`` is rewritten: the kernel's own time on the card, with
     no launch or event overhead in it.  Three rewrites of ``flush`` alone
-    open the window: a trace taken right after the glm4-9b phases once
-    held 19 of its 20 iterations."""
+    open the window.  Call it before the serving phases: after their
+    large traces, a short trace has lost up to ten of its first launches
+    (and a 10 ms spin on the card ahead of them did not help: the loss
+    counts launches, not time)."""
     def run():
         for _ in range(3):
             flush.add_(1)
@@ -282,18 +331,41 @@ class CallRecorder:
         setattr(self.module, self.name, self.orig)
 
 
-def device_busy_ms(torch, run) -> dict:
+def device_busy_ms(torch, run, ranges=()) -> dict:
     """Device time by kind over ``run()`` from ``torch.profiler``:
     kernels vs memory copies, in ms (0 where the trace has no device
     events), the five device entries that took longest, the number of
     host-to-device and device-to-host copies, and ``ops``: the device
-    ms of the kernels each host op (``aten::mm``, ...) launched itself."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
+    ms of the kernels each host op (``aten::mm``, ...) launched itself,
+    and ``launches``: the number of kernels (copies not counted).
+
+    ``ranges``: (module, function name) pairs, each wrapped in a
+    ``record_function`` of its name for the run.  Each kernel then
+    belongs to the innermost range around the op that launched it:
+    ``ranges`` in the result gives each range's device ms and host ms,
+    ``outside`` the device ms by op of the kernels outside them all."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    labels = {name for _, name in ranges}
+
+    def in_range(fn, name):
+        def wrapped(*args, **kw):
+            with record_function(name):
+                return fn(*args, **kw)
+        return wrapped
+
+    origs = [(mod, name, getattr(mod, name)) for mod, name in ranges]
+    for mod, name, fn in origs:
+        setattr(mod, name, in_range(fn, name))
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+    finally:
+        for mod, name, fn in origs:
+            setattr(mod, name, fn)
     kernel = copy = 0.0
+    launches = 0
     entries = []
     copies = {"HtoD": 0, "DtoH": 0}
     ops = {}
@@ -305,6 +377,8 @@ def device_busy_ms(torch, run) -> dict:
             if us > 0:
                 ops[e.key] = us / 1e3
             continue
+        if e.key in labels:          # a range's span on the device
+            continue
         entries.append((us / 1e3, e.count, e.key[:80]))
         for way in copies:
             if "memcpy" in e.key.lower() and way in e.key:
@@ -313,10 +387,35 @@ def device_busy_ms(torch, run) -> dict:
             copy += us / 1e3
         else:
             kernel += us / 1e3
+            launches += e.count
     top = [{"name": k, "ms": ms, "count": n}
            for ms, n, k in sorted(entries, reverse=True)[:5]]
-    return {"kernel_ms": kernel, "copy_ms": copy, "top": top,
-            "copies": copies, "ops": ops}
+    out = {"kernel_ms": kernel, "copy_ms": copy, "launches": launches,
+           "top": top, "copies": copies, "ops": ops}
+    if ranges:
+        spans = {name: {"device_ms": 0.0, "host_ms": 0.0, "calls": 0}
+                 for name in labels}
+        outside = {}
+        for e in prof.events():
+            if "CUDA" in str(e.device_type):
+                continue
+            if e.name in labels:
+                spans[e.name]["host_ms"] += e.cpu_time_total / 1e3
+                spans[e.name]["calls"] += 1
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = e.self_cuda_time_total
+            if us <= 0:
+                continue
+            owner = e
+            while owner is not None and owner.name not in labels:
+                owner = owner.cpu_parent
+            if owner is None:
+                outside[e.name] = outside.get(e.name, 0.0) + us / 1e3
+            else:
+                spans[owner.name]["device_ms"] += us / 1e3
+        out.update(ranges=spans, outside=outside)
+    return out
 
 
 def wkv_inputs(np, torch, shape, types, seed: int = 0, strong=False):
@@ -423,14 +522,15 @@ def rel_err(a, b) -> float:
     return float((a - b).abs().max()) / den if den else 0.0
 
 
-def run_dense(torch, np, dev, cfg, counters, smi: str) -> None:
-    """Phases 10-12: ``cfg`` (glm4-9b FULL) served, profiled and held
-    against ``forward``, its solo runs and the host.  ``counters`` are
-    the kernel wrappers, whose launches are read over the served run."""
-    import dataclasses
+def serve_cell(torch, np, dev, cfg, counters, record=None):
+    """A decoder family's ``-serve`` phase: ``cfg``'s weights drawn on the
+    card (f32, seed 0), a warm-up, then the 8 requests through a
+    ``ServeEngine(batch_size=4, max_seq=1024)`` with every prefill and
+    decode call timed; ``record`` (a context manager) is entered around
+    that run.  Returns (the phase line, what the later phases use)."""
+    import contextlib
     from repro_torch.models import Model
 
-    # -- 10. dense-serve -------------------------------------------------
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = Model(cfg, device=dev).init(
@@ -439,7 +539,9 @@ def run_dense(torch, np, dev, cfg, counters, smi: str) -> None:
     init_s = time.perf_counter() - t0
     params = model.state_dict()
     n_params = model.n_params()
-    check(n_params == cfg.n_params(),
+    # ArchConfig.n_params() is the reference's estimate; it is exact for
+    # dense and moe, and off for hybrid (ROADMAP queue 3).
+    check(cfg.family == "hybrid" or n_params == cfg.n_params(),
           f"{cfg.name}: {n_params} parameters, the config says "
           f"{cfg.n_params()}")
     lens, prompts = serve_prompts(np, cfg.vocab, SERVE_REQUESTS)
@@ -452,8 +554,9 @@ def run_dense(torch, np, dev, cfg, counters, smi: str) -> None:
     timings = {"_prefill": [], "_decode": []}
     for c in counters:
         c.launches = 0
-    engine, finished, wall = engine_run([(p, SERVE_NEW) for p in prompts],
-                                        timings)
+    with record or contextlib.nullcontext():
+        engine, finished, wall = engine_run(
+            [(p, SERVE_NEW) for p in prompts], timings)
     launches = {c.__name__: c.launches for c in counters}
     check(len(finished) == SERVE_REQUESTS
           and all(len(r.generated) == SERVE_NEW for r in finished),
@@ -462,68 +565,54 @@ def run_dense(torch, np, dev, cfg, counters, smi: str) -> None:
           f"{cfg.name} serve produced non-finite logits")
     pre_s = [t for t, _, _ in timings["_prefill"]]
     dec_s = [t for t, _, _ in timings["_decode"]]
+    dec_ms = np.asarray(dec_s) * 1e3
     longest = int(np.argmax(lens))
-    emit({"phase": "dense-serve", "arch": cfg.name, "dtype": "float32",
-          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
-          "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
-          "params": n_params,
-          "param_bytes": sum(t.numel() * t.element_size()
-                             for t in params.values()),
-          "init_s": init_s, "requests": len(finished),
-          "max_seq": DENSE_MAX_SEQ,
-          "cache_window": engine.model.cache_window(DENSE_MAX_SEQ),
-          "prompt_tokens": int(lens.sum()),
-          "prompt_lens": [int(n) for n in lens],
-          "prefill_calls": engine.prefill_calls,
-          "prefill_ms_per_request": float(np.mean(pre_s)) * 1e3,
-          "prefill_ms": [t * 1e3 for t in pre_s],
-          "prefill_tokens_per_s": float(lens.sum()) / sum(pre_s),
-          "first_prompt": {"len": int(lens[0]), "ms": pre_s[0] * 1e3},
-          "longest_prompt": {"len": int(lens[longest]),
-                             "ms": pre_s[longest] * 1e3},
-          "decode_steps": len(dec_s), "decode_batch": SERVE_BATCH,
-          "decode_ms_per_step_median": float(np.median(dec_s)) * 1e3,
-          "decode_ms_per_step_mean": float(np.mean(dec_s)) * 1e3,
-          "wall_s": wall, "launches": launches,
-          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-          "nvidia_smi": smi})
+    param_bytes = sum(t.numel() * t.element_size() for t in params.values())
+    # A decode step reads every weight but the embedding table, of which
+    # it gathers B rows.
+    step_bytes = param_bytes - params["embed"].numel() * 4
+    line = {"arch": cfg.name, "family": cfg.family, "dtype": "float32",
+            "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+            "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+            "params": n_params, "param_bytes": param_bytes,
+            "init_s": init_s, "requests": len(finished),
+            "max_seq": DENSE_MAX_SEQ,
+            "cache_window": engine.model.cache_window(DENSE_MAX_SEQ),
+            "prompt_tokens": int(lens.sum()),
+            "prompt_lens": [int(n) for n in lens],
+            "prefill_calls": engine.prefill_calls,
+            "prefill_ms_per_request": float(np.mean(pre_s)) * 1e3,
+            "prefill_ms": [t * 1e3 for t in pre_s],
+            "prefill_tokens_per_s": float(lens.sum()) / sum(pre_s),
+            "first_prompt": {"len": int(lens[0]), "ms": pre_s[0] * 1e3},
+            "longest_prompt": {"len": int(lens[longest]),
+                               "ms": pre_s[longest] * 1e3},
+            "decode_steps": len(dec_s), "decode_batch": SERVE_BATCH,
+            "decode_ms_per_step_median": float(np.median(dec_ms)),
+            "decode_ms_per_step_mean": float(np.mean(dec_ms)),
+            "decode_ms_per_step_min_q1_q3_max": [
+                float(np.min(dec_ms)), float(np.percentile(dec_ms, 25)),
+                float(np.percentile(dec_ms, 75)), float(np.max(dec_ms))],
+            "decode_bytes": step_bytes,
+            "decode_bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3,
+            "wall_s": wall, "launches": launches,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    return line, {"engine": engine, "finished": finished, "model": model,
+                  "params": params, "lens": lens, "prompts": prompts,
+                  "pre_s": pre_s, "dec_s": dec_s, "engine_run": engine_run}
 
-    # -- 11. dense-breakdown: one profiled prefill and decode step -------
-    def split(busy, wall_ms):
-        """Device ms of the weight GEMMs (``aten::mm``), of attention's
-        score and value products (``aten::bmm``: the einsums of
-        ``chunked_attention`` and ``decode_attention``) and of the rest."""
-        ops = busy["ops"]
-        gemm = sum(ms for k, ms in ops.items()
-                   if k in ("aten::mm", "aten::addmm"))
-        attn = ops.get("aten::bmm", 0.0)
-        kernel = busy["kernel_ms"]
-        top_ops = sorted(ops.items(), key=lambda kv: -kv[1])[:8]
-        return {"wall_ms": wall_ms, "kernel_ms": kernel,
-                "copy_ms": busy["copy_ms"],
-                "busy_share": (kernel + busy["copy_ms"]) / wall_ms,
-                "gemm_ms": gemm, "attention_products_ms": attn,
-                "other_ms": kernel - gemm - attn,
-                "gemm_share": gemm / kernel if kernel else None,
-                "attention_products_share": attn / kernel if kernel else None,
-                "top": busy["top"], "top_ops": top_ops}
 
-    first = {"tokens": torch.from_numpy(prompts[0][None])}
-    pre_busy = device_busy_ms(torch, lambda: engine.model.prefill(
-        first, seq_len=DENSE_MAX_SEQ))
-    dec_busy = device_busy_ms(torch, lambda: engine.model.decode_step(
-        engine.cache, torch.zeros(SERVE_BATCH, dtype=torch.int32)))
-    emit({"phase": "dense-breakdown",
-          "prefill": {"prompt_len": int(lens[0]),
-                      **split(pre_busy, pre_s[0] * 1e3)},
-          "decode": {"batch": SERVE_BATCH,
-                     **split(dec_busy, float(np.median(dec_s)) * 1e3)}})
-
-    # -- 12. dense-parity --------------------------------------------------
-    # Decode against forward (tests/test_models.py at full width).
+def served_parity(torch, np, cell, forward_cfg) -> dict:
+    """Prefill of 64 tokens and decode of 32 more against ``forward`` on
+    all 96, by a model of ``forward_cfg`` on the served weights (1e-3 of
+    max|logit|); then each batched request's greedy tokens against its
+    solo (B=1) run (equal, or a top-2 gap < 1e-3 of max|logit| where
+    they part)."""
+    from repro_torch.models import Model
+    m = Model(forward_cfg, device=cell["engine"].device)
+    m.load_state_dict(cell["params"], assign=True)
     toks = torch.from_numpy(np.random.default_rng(1).integers(
-        0, cfg.vocab, size=(1, DENSE_SEQ)).astype(np.int32))
-    m = engine.model
+        0, forward_cfg.vocab, size=(1, DENSE_SEQ)).astype(np.int32))
     full, _ = m({"tokens": toks})
     scale = float(full.abs().max())
     lg, cache = m.prefill({"tokens": toks[:, :DENSE_PREFIX]},
@@ -534,16 +623,16 @@ def run_dense(torch, np, dev, cfg, counters, smi: str) -> None:
         errs.append(float((lg - full[:, i]).abs().max()))
     decode_rel = max(errs) / scale
     check(decode_rel <= PARITY_TOL,
-          f"{cfg.name} prefill+decode differs from forward by "
+          f"{forward_cfg.name} prefill+decode differs from forward by "
           f"{decode_rel} of max|logit|")
-    del full, cache, lg
+    del full, cache, lg, m
 
-    # Slot independence: each batched request against its solo run.
-    batched = {r.uid: r.generated for r in finished}
+    batched = {r.uid: r.generated for r in cell["finished"]}
     slots = []
-    for uid, prompt in enumerate(prompts):
+    for uid, prompt in enumerate(cell["prompts"]):
         log = {"_prefill": [], "_decode": []}
-        _, [solo], _ = engine_run([(prompt, SERVE_NEW)], log, batch_size=1)
+        _, [solo], _ = cell["engine_run"]([(prompt, SERVE_NEW)], log,
+                                          batch_size=1)
         diff = next((j for j, (a, b) in enumerate(zip(solo.generated,
                                                       batched[uid]))
                      if a != b), None)
@@ -557,24 +646,32 @@ def run_dense(torch, np, dev, cfg, counters, smi: str) -> None:
                   f"{diff} with a top-2 gap of {gap} of max|logit|")
         slots.append({"uid": uid, "tokens_equal": diff is None,
                       "first_diff_step": diff, "solo_top2_gap_rel": gap})
-    del engine, m, model, params, timings
-    torch.cuda.empty_cache()
+    factor = ({"capacity_factor": forward_cfg.capacity_factor}
+              if forward_cfg.family == "moe" else {})
+    return {"decode_vs_forward": {
+                "prefix": DENSE_PREFIX, "seq": DENSE_SEQ, **factor,
+                "max_abs_err": max(errs), "max_abs_logit": scale,
+                "rel": decode_rel},
+            "slot_independence": slots}
 
-    # Card against host: a 2-layer cut at full width, the same weights.
-    cut = dataclasses.replace(cfg, n_layers=DENSE_CUT_LAYERS)
+
+def card_vs_host(torch, np, dev, cut, prompt) -> dict:
+    """``cut`` drawn on the card (seed 1) and copied to the host: prefill
+    logits within 1e-4 of their max, and 8 greedy tokens equal."""
+    from repro_torch.models import Model
     card = Model(cut, device=dev).init(
         torch.Generator(device=dev).manual_seed(1), torch.float32)
     host = Model(cut, device="cpu")
     host.load_state_dict({k: t.cpu() for k, t in card.state_dict().items()},
                          assign=True)
-    batch = {"tokens": torch.from_numpy(prompts[0][None, :DENSE_PREFIX])}
+    batch = {"tokens": torch.from_numpy(prompt[None, :DENSE_PREFIX])}
     t = time.perf_counter()
     lc, cc = card.prefill(batch, seq_len=DENSE_SEQ)
     lh, ch = host.prefill(batch, seq_len=DENSE_SEQ)
     host_s = time.perf_counter() - t
     host_rel = rel_err(lc.cpu(), lh)
     check(host_rel <= DENSE_HOST_TOL,
-          f"{cut.name} x{DENSE_CUT_LAYERS} prefill on the card differs from "
+          f"{cut.name} x{cut.n_layers} prefill on the card differs from "
           f"the host by {host_rel} of max|logit|")
     toks_c, toks_h = [], []
     for _ in range(DENSE_HOST_STEPS):
@@ -583,17 +680,254 @@ def run_dense(torch, np, dev, cfg, counters, smi: str) -> None:
         lc, cc = card.decode_step(cc, torch.tensor([toks_c[-1]]))
         lh, ch = host.decode_step(ch, torch.tensor([toks_h[-1]]))
     check(toks_c == toks_h,
-          f"greedy tokens differ between card and host: {toks_c} {toks_h}")
-    emit({"phase": "dense-parity", "tol": PARITY_TOL,
-          "decode_vs_forward": {"prefix": DENSE_PREFIX, "seq": DENSE_SEQ,
-                                "max_abs_err": max(errs),
-                                "max_abs_logit": scale, "rel": decode_rel},
-          "slot_independence": slots,
-          "card_vs_host": {"layers": DENSE_CUT_LAYERS,
-                           "d_model": cut.d_model, "vocab": cut.vocab,
-                           "prompt_len": DENSE_PREFIX, "logit_rel": host_rel,
-                           "tol": DENSE_HOST_TOL, "tokens": toks_c,
-                           "tokens_equal": True, "seconds": host_s}})
+          f"{cut.name}: greedy tokens differ between card and host: "
+          f"{toks_c} {toks_h}")
+    return {"arch": cut.name, "layers": cut.n_layers, "d_model": cut.d_model,
+            "vocab": cut.vocab, "params": host.n_params(),
+            "prompt_len": DENSE_PREFIX, "logit_rel": host_rel,
+            "tol": DENSE_HOST_TOL, "tokens": toks_c, "tokens_equal": True,
+            "seconds": host_s}
+
+
+def op_split(busy, wall_ms, inside=None) -> dict:
+    """Device ms of a profiled pass: the weight GEMMs (``aten::mm``) and
+    the batched products (``aten::bmm``) outside every named range, each
+    named range's own device ms (``inside``: range -> key), and the
+    rest."""
+    ops = busy["outside"] if inside is not None else busy["ops"]
+    gemm = sum(ms for k, ms in ops.items()
+               if k in ("aten::mm", "aten::addmm"))
+    bmm = ops.get("aten::bmm", 0.0)
+    kernel = busy["kernel_ms"]
+    named = {key: busy["ranges"][r]["device_ms"]
+             for r, key in (inside or {}).items()}
+    out = {"wall_ms": wall_ms, "kernel_ms": kernel,
+           "copy_ms": busy["copy_ms"], "kernel_launches": busy["launches"],
+           "busy_share": (kernel + busy["copy_ms"]) / wall_ms,
+           "gemm_ms": gemm, "attention_products_ms": bmm, **named,
+           "other_ms": kernel - gemm - bmm - sum(named.values()),
+           "gemm_share": gemm / kernel if kernel else None,
+           "attention_products_share": bmm / kernel if kernel else None,
+           "top": busy["top"],
+           "top_ops": sorted(ops.items(), key=lambda kv: -kv[1])[:8]}
+    for key, ms in named.items():
+        out[key.replace("_ms", "_share")] = ms / kernel if kernel else None
+    return out
+
+
+def run_dense(torch, np, dev, cfg, counters, smi: str) -> None:
+    """Phases 10-12: ``cfg`` (glm4-9b FULL) served, profiled and held
+    against ``forward``, its solo runs and the host.  ``counters`` are
+    the kernel wrappers, whose launches are read over the served run."""
+
+    line, cell = serve_cell(torch, np, dev, cfg, counters)
+    emit({"phase": "dense-serve", **line, "nvidia_smi": smi})
+
+    # -- 11. dense-breakdown: one profiled prefill and decode step -------
+    engine, prompts = cell["engine"], cell["prompts"]
+    first = {"tokens": torch.from_numpy(prompts[0][None])}
+    pre_busy = device_busy_ms(torch, lambda: engine.model.prefill(
+        first, seq_len=DENSE_MAX_SEQ))
+    dec_busy = device_busy_ms(torch, lambda: engine.model.decode_step(
+        engine.cache, torch.zeros(SERVE_BATCH, dtype=torch.int32)))
+    emit({"phase": "dense-breakdown",
+          "prefill": {"prompt_len": len(prompts[0]),
+                      **op_split(pre_busy, cell["pre_s"][0] * 1e3)},
+          "decode": {"batch": SERVE_BATCH,
+                     **op_split(dec_busy,
+                                float(np.median(cell["dec_s"])) * 1e3)}})
+
+    # -- 12. dense-parity --------------------------------------------------
+    parity = served_parity(torch, np, cell, cfg)
+    del engine, cell
+    free_memory(torch)
+    host = card_vs_host(torch, np, dev,
+                        dataclasses.replace(cfg, n_layers=DENSE_CUT_LAYERS),
+                        prompts[0])
+    emit({"phase": "dense-parity", "tol": PARITY_TOL, **parity,
+          "card_vs_host": host})
+
+
+class RoutingRecorder:
+    """While entered, keeps the expert ids of every prefill's routing
+    (``moe.route`` with S > 1; device tensors, no synchronisation), so
+    that the assignments dropped at capacity are counted afterwards."""
+
+    def __init__(self, cfg) -> None:
+        from repro_torch.models import moe
+        self.moe, self.cfg = moe, cfg
+        self.ids = []
+
+    def __enter__(self):
+        orig = self.orig = self.moe.route
+
+        def route(p, x, top_k):
+            out = orig(p, x, top_k)
+            if x.shape[1] > 1:
+                self.ids.append(out[2])
+            return out
+        self.moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.orig
+
+    def dropped(self, torch) -> dict:
+        """Assignments, and those past their expert's capacity in their
+        row (GShard group), over the recorded prefills, by layer."""
+        cfg, E = self.cfg, self.cfg.n_experts
+        by_layer = [0] * cfg.n_layers
+        total = 0
+        for i, ids in enumerate(self.ids):
+            B, S, k = ids.shape
+            C = self.moe.capacity(S, E, k, cfg.capacity_factor)
+            counts = torch.nn.functional.one_hot(
+                ids.reshape(B, S * k), E).sum(dim=1)           # (B, E)
+            by_layer[i % cfg.n_layers] += int(
+                torch.clamp(counts - C, min=0).sum())
+            total += ids.numel()
+        return {"capacity_factor": cfg.capacity_factor,
+                "prefill_calls": len(self.ids) // cfg.n_layers,
+                "assignments": total, "dropped": sum(by_layer),
+                "dropped_share": sum(by_layer) / total if total else None,
+                "dropped_by_layer": by_layer}
+
+
+def run_moe(torch, np, dev, cfg, top1_cfg, counters, smi: str) -> None:
+    """Phases 13-15: ``cfg`` (mixtral-8x7b at full width, depth cut)
+    served, profiled and held against ``forward`` at capacity factor
+    E/k, its solo runs, and a 1-layer cut on the host; then the same
+    three checks on ``top1_cfg`` (llama4-maverick smoke, top-1)."""
+    from repro_torch.models import moe
+
+    rec = RoutingRecorder(cfg)
+    line, cell = serve_cell(torch, np, dev, cfg, counters, rec)
+    drops = rec.dropped(torch)
+    del rec
+    emit({"phase": "moe-serve", **line,
+          "experts": [cfg.n_experts, cfg.top_k],
+          "capacity_factor": cfg.capacity_factor,
+          "prefill_drops": drops, "nvidia_smi": smi})
+
+    # -- 14. moe-breakdown: one profiled prefill and decode step ---------
+    engine, prompts = cell["engine"], cell["prompts"]
+    ranges = ((moe, "moe_ffn"), (moe, "experts"))
+    inside = {"moe_ffn": "dispatch_ms", "experts": "experts_ms"}
+    first = {"tokens": torch.from_numpy(prompts[0][None])}
+    pre_busy = device_busy_ms(torch, lambda: engine.model.prefill(
+        first, seq_len=DENSE_MAX_SEQ), ranges)
+    dec_busy = device_busy_ms(torch, lambda: engine.model.decode_step(
+        engine.cache, torch.zeros(SERVE_BATCH, dtype=torch.int32)), ranges)
+    emit({"phase": "moe-breakdown",
+          "note": "experts_ms: the expert SwiGLU (its bmm, silu, mul); "
+                  "dispatch_ms: the rest of moe_ffn (router, sort, cumsum, "
+                  "gathers, one-hot, combine); gemm_ms: aten::mm outside "
+                  "moe_ffn (attention weights, LM head)",
+          "prefill": {"prompt_len": len(prompts[0]),
+                      "capacity": moe.capacity(len(prompts[0]),
+                                               cfg.n_experts, cfg.top_k,
+                                               cfg.capacity_factor),
+                      **op_split(pre_busy, cell["pre_s"][0] * 1e3, inside)},
+          "decode": {"batch": SERVE_BATCH,
+                     "capacity": moe.capacity(1, cfg.n_experts, cfg.top_k,
+                                              cfg.capacity_factor),
+                     **op_split(dec_busy,
+                                float(np.median(cell["dec_s"])) * 1e3,
+                                inside)}})
+
+    # -- 15. moe-parity ----------------------------------------------------
+    # Decode equals forward only where nothing drops: at E/k, C >= S.
+    no_drop = dataclasses.replace(
+        cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+    parity = served_parity(torch, np, cell, no_drop)
+    del engine, cell
+    free_memory(torch)
+    host = card_vs_host(torch, np, dev,
+                        dataclasses.replace(cfg, n_layers=MOE_HOST_LAYERS),
+                        prompts[0])
+    free_memory(torch)
+    _, small = serve_cell(torch, np, dev, top1_cfg, counters)
+    top1 = served_parity(torch, np, small, dataclasses.replace(
+        top1_cfg, capacity_factor=top1_cfg.n_experts / top1_cfg.top_k))
+    top1["card_vs_host"] = card_vs_host(torch, np, dev, top1_cfg,
+                                        small["prompts"][0])
+    del small
+    emit({"phase": "moe-parity", "tol": PARITY_TOL, **parity,
+          "card_vs_host": host,
+          "top1": {"arch": top1_cfg.name,
+                   "experts": [top1_cfg.n_experts, top1_cfg.top_k],
+                   **top1}})
+
+
+def run_hybrid(torch, np, dev, cfg, counters, smi: str) -> None:
+    """Phases 16-18: ``cfg`` (hymba-1.5b FULL) served, profiled (the SSM
+    scan loop's share of device and wall time) and held against
+    ``forward``, its solo runs and a 2-layer cut on the host."""
+    from repro_torch.models import hymba
+
+    line, cell = serve_cell(torch, np, dev, cfg, counters)
+    emit({"phase": "hybrid-serve", **line, "ssm_state": cfg.ssm_state,
+          "nvidia_smi": smi})
+
+    # -- 17. hybrid-breakdown ----------------------------------------------
+    engine, prompts = cell["engine"], cell["prompts"]
+    first = {"tokens": torch.from_numpy(prompts[0][None])}
+    ranges = ((hymba, "selective_scan"), (hymba, "ssm_step"))
+    inside = {"selective_scan": "scan_loop_ms", "ssm_step": "ssm_step_ms"}
+    pre_busy = device_busy_ms(torch, lambda: engine.model.prefill(
+        first, seq_len=DENSE_MAX_SEQ), ranges)
+    dec_busy = device_busy_ms(torch, lambda: engine.model.decode_step(
+        engine.cache, torch.zeros(SERVE_BATCH, dtype=torch.int32)), ranges)
+    # The scan loop's share of a prefill's wall time, unprofiled: the
+    # card synchronised around each layer's loop and around the prefill.
+    scan_s = []
+    orig = hymba.selective_scan
+
+    def timed_scan(*args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = orig(*args)
+        torch.cuda.synchronize()
+        scan_s.append(time.perf_counter() - t)
+        return out
+    hymba.selective_scan = timed_scan
+    try:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        engine.model.prefill(first, seq_len=DENSE_MAX_SEQ)
+        torch.cuda.synchronize()
+        synced_s = time.perf_counter() - t
+    finally:
+        hymba.selective_scan = orig
+    check(len(scan_s) == cfg.n_layers,
+          f"{len(scan_s)} scan loops in a {cfg.n_layers}-layer prefill")
+    scan_host_ms = pre_busy["ranges"]["selective_scan"]["host_ms"]
+    emit({"phase": "hybrid-breakdown",
+          "note": "scan_loop_ms: device ms inside hymba.selective_scan (the "
+                  "loop over t, its hoisted decay and input terms, and y); "
+                  "ssm_step_ms: the decode step's SSM; gemm_ms: aten::mm "
+                  "outside both",
+          "prefill": {"prompt_len": len(prompts[0]),
+                      "scan_steps": len(prompts[0]) * cfg.n_layers,
+                      "scan_loop_host_ms_profiled": scan_host_ms,
+                      "synced_prefill_ms": synced_s * 1e3,
+                      "scan_loop_wall_ms": sum(scan_s) * 1e3,
+                      "scan_loop_wall_share": sum(scan_s) / synced_s,
+                      **op_split(pre_busy, cell["pre_s"][0] * 1e3, inside)},
+          "decode": {"batch": SERVE_BATCH,
+                     **op_split(dec_busy,
+                                float(np.median(cell["dec_s"])) * 1e3,
+                                inside)}})
+
+    # -- 18. hybrid-parity -------------------------------------------------
+    parity = served_parity(torch, np, cell, cfg)
+    del engine, cell
+    free_memory(torch)
+    host = card_vs_host(torch, np, dev,
+                        dataclasses.replace(cfg, n_layers=HYBRID_HOST_LAYERS),
+                        prompts[0])
+    emit({"phase": "hybrid-parity", "tol": PARITY_TOL, **parity,
+          "card_vs_host": host})
 
 
 def main() -> int:
@@ -734,8 +1068,9 @@ def main() -> int:
     node_score.node_scores.launches = 0
     node_score.node_scores_slots.launches = 0
     res_gpu, wall_gpu = run_51(None)
-    main_launches = {"node_scores": node_score.node_scores.launches,
-                     "node_scores_slots": node_score.node_scores_slots.launches}
+    main_launches = {
+        "node_scores": node_score.node_scores.launches,
+        "node_scores_slots": node_score.node_scores_slots.launches}
     res_cpu, wall_cpu = run_51("cpu")
     res_np, wall_np = run_51(None, backend="np")
     rep_gpu = res_gpu.metrics.report()
@@ -850,6 +1185,13 @@ def main() -> int:
                 "launch_floor_ms": launch_floor_ms})
             emit({"phase": "scale", **scale[-1]})
             full_cols, full_kw = cols, kw
+    # Each kernel's own device duration at the 1M-node full-width pass,
+    # from the profiler, for the kernels line.
+    slots_call = lambda: node_score.node_scores_slots(*full_cols, **full_kw)
+    score_call = lambda: node_score.node_scores(*full_cols, **full_kw)
+    prof_slots, prof_score = (
+        profiled_kernel_ms(torch, fn, flush, "node_score_kernel")
+        for fn in (slots_call, score_call))
 
     # -- 6b. seam-time: the packed seam against the per-column one -----
     col_dtypes = (np.int32, np.int32, np.bool_, np.float32, np.float32)
@@ -1132,13 +1474,25 @@ def main() -> int:
                        "prefill_s_kernel": k_s, "prefill_s_scan": s_s})
     emit({"phase": "serve-parity", "tol": PARITY_TOL, "cases": parity})
     del scan_model, kern_model, engine, model, params, ck, cs, lk, ls
-    torch.cuda.empty_cache()
+    free_memory(torch)
 
     # -- 10-12. glm4-9b at full width: serve, breakdown, parity ---------
     counters = (node_score.node_scores, node_score.node_scores_slots,
                 wkv6.wkv6, wkv6.wkv6_step)
     run_dense(torch, np, dev, get_arch(DENSE_ARCH), counters, smi)
-    torch.cuda.empty_cache()
+    free_memory(torch)
+
+    # -- 13-15. mixtral-8x7b at full width, 8 of 32 layers -------------
+    moe_cfg = get_arch(MOE_ARCH)
+    moe_cut = dataclasses.replace(moe_cfg, n_layers=MOE_CUT_LAYERS,
+                                  name=f"{MOE_ARCH}-l{MOE_CUT_LAYERS}")
+    run_moe(torch, np, dev, moe_cut, get_arch(MOE_TOP1_ARCH, smoke=True),
+            counters, smi)
+    free_memory(torch)
+
+    # -- 16-18. hymba-1.5b FULL ----------------------------------------
+    run_hybrid(torch, np, dev, get_arch(HYBRID_ARCH), counters, smi)
+    free_memory(torch)
 
     # -- kernels line: timed at the 1M-node full-width pass ------------
     full = scale[-1]
@@ -1146,14 +1500,8 @@ def main() -> int:
     p_score = device_ms(
         torch, lambda: node_scores_ref(*full_cols, **full_kw), 20, flush)
     b_score, by_score = bound_ms(n1m, 4)
-    slots_call = lambda: node_score.node_scores_slots(*full_cols, **full_kw)
-    score_call = lambda: node_score.node_scores(*full_cols, **full_kw)
     s_times = []
     k_score = device_ms(torch, score_call, 50, flush, s_times)
-    # Each kernel's own device duration at 1M nodes, from the profiler.
-    prof_slots, prof_score = (
-        profiled_kernel_ms(torch, fn, flush, "node_score_kernel")
-        for fn in (slots_call, score_call))
     kernels = [
         {"name": "node_scores_slots", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/node_score.cu",
@@ -1194,6 +1542,7 @@ def main() -> int:
          "ms": w_time["chunked_ms"], "step_ms": w_time["step_ms"],
          "plain_ms": w_plain, "bound_ms": w_time["bound_ms"],
          "bound_by": w_time["bound_by"], "library_ms": None,
+         "launch_floor_ms": launch_floor_ms,
          "shape": WKV_SERVE_SHAPE, "types": "f32"})
     print(json.dumps({"kernels": kernels,
                       "library_note": "no single PyTorch call computes the "
@@ -1201,7 +1550,13 @@ def main() -> int:
                                       "the WKV recurrence",
                       "dense_note": f"the {DENSE_ARCH} path runs no "
                                     "hand-written kernel: attention, RoPE "
-                                    "and the MLP are plain torch"}),
+                                    "and the MLP are plain torch",
+                      "moe_hybrid_note": f"the {MOE_ARCH} and {HYBRID_ARCH} "
+                                         "paths run no hand-written kernel: "
+                                         "the MoE dispatch, the expert "
+                                         "SwiGLU and the selective scan are "
+                                         "plain torch, as the reference's "
+                                         "are plain jnp"}),
           flush=True)
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -58,7 +58,7 @@ def make_inputs(cfg: ArchConfig, *, batch: int, seq: int,
     if cfg.family in ("vlm", "encdec"):
         raise NotImplementedError(
             f"{cfg.family} stub embeddings are not ported yet (ROADMAP "
-            f"queue 1, item 5)")
+            f"queue 1, models/frontend.py)")
     out = {"tokens": tokens((batch, seq))}
     if kind == "train":
         out["labels"] = tokens(tuple(out["tokens"].shape))

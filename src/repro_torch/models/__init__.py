@@ -1,4 +1,5 @@
-"""Model zoo of the port: the families ported so far (``dense``, ``ssm``)."""
+"""Model zoo of the port: the decoder-only families (``dense``, ``ssm``,
+``moe``, ``hybrid``)."""
 
 from .model import Model
 

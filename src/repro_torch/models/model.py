@@ -1,22 +1,27 @@
 """The model zoo: ``ArchConfig`` -> init / forward / prefill / decode.
 
 The counterpart of the reference package's ``models/model.py`` for the
-families ported so far: ``dense`` (RoPE, GQA attention, SwiGLU MLP) and
-``ssm`` (RWKV-6).  The others raise ``NotImplementedError`` until their
-slice lands (ROADMAP queue 1, item 5).
+decoder-only families: ``dense`` (RoPE, GQA attention, SwiGLU MLP),
+``ssm`` (RWKV-6), ``moe`` (the dense block with a GShard MoE FFN,
+:mod:`.moe`) and ``hybrid`` (Hymba: parallel attention and selective-SSM
+heads, :mod:`.hymba`).  The ``encdec`` and ``vlm`` families raise
+``NotImplementedError`` until the frontends' slice lands (ROADMAP queue
+1, ``models/frontend.py``).
 
 Where the reference stacks per-layer parameters along a leading ``L``
 axis and scans over them with ``lax.scan``, the port keeps one
 ``nn.ParameterDict`` per layer (nested where the reference's block is:
-``attn`` and ``mlp`` of a dense block) in an ``nn.ModuleList`` and
+``attn``, ``mlp``, ``moe`` and ``ssm``) in an ``nn.ModuleList`` and
 loops in Python.  Parameter names are the reference's keys (``embed``,
 ``layers.<l>.<key>``, ``layers.<l>.attn.wq``, ``final_norm``,
 ``lm_head``), so :func:`repro_torch.models.bridge.params_from_reference`
 carries its weights across.  The cache keeps the reference's layout and
-keys: for ``dense`` a ring-buffer KV cache ``layers.k`` and ``layers.v``
-``(L,B,W,Kh,hd)``; for ``ssm`` ``layers.state (L,B,H,n,n) f32``,
-``layers.x_last_t`` and ``x_last_c`` ``(L,B,d)``; and the clock ``t``
-(a scalar, or ``(B,)`` per-row clocks as the serving engine keeps).
+keys: a ring-buffer KV cache ``layers.k`` and ``layers.v``
+``(L,B,W,Kh,hd)`` for every family with attention, and for ``hybrid``
+also the SSM state ``layers.ssm (L,B,d,N) f32``; for ``ssm``
+``layers.state (L,B,H,n,n) f32``, ``layers.x_last_t`` and ``x_last_c``
+``(L,B,d)``; and the clock ``t`` (a scalar, or ``(B,)`` per-row clocks
+as the serving engine keeps).
 
 A ``Model`` is built on the meta device, so it holds no memory until
 :meth:`Model.init` draws its weights or ``load_state_dict(...,
@@ -33,6 +38,8 @@ from torch import nn
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
+from . import hymba as hy
+from . import moe as moe_mod
 from . import rwkv6 as rw
 from .layers import (decode_attention, dense_init, embed, init_attn,
                      init_embed, init_mlp, mlp, prefill_attention, rmsnorm,
@@ -40,7 +47,7 @@ from .layers import (decode_attention, dense_init, embed, init_attn,
 
 PyTree = Any
 WKV_BACKENDS = rw.TIME_MIX_BACKENDS
-FAMILIES = ("dense", "ssm")
+FAMILIES = ("dense", "ssm", "moe", "hybrid")
 
 
 def _residual_out_scale(n_layers: int) -> float:
@@ -60,14 +67,38 @@ def _meta_tree(shapes: Dict[str, Any]) -> nn.ParameterDict:
         for k, s in shapes.items()})
 
 
+def _param(t: torch.Tensor, device) -> nn.Parameter:
+    return nn.Parameter(t.to(device), requires_grad=False)
+
+
+def _assign(lp: nn.ParameterDict, block: Dict[str, Any], device) -> None:
+    """Put a (nested) dict of tensors into a (nested) ParameterDict.  A
+    module-level function: a recursive closure over the model would hold
+    the model in a reference cycle, and so its memory until the cyclic
+    collector runs."""
+    for k, t in block.items():
+        if isinstance(t, dict):
+            _assign(lp[k], t, device)
+        else:
+            lp[k] = _param(t, device)
+
+
 def _block_shapes(cfg: ArchConfig, head_dim: int) -> Dict[str, Any]:
     """One block's parameter shapes, keyed as the reference's block."""
     d, f = cfg.d_model, cfg.d_ff
     if cfg.family == "ssm":
         return rw.spec_rwkv_block(d, f, head_dim)
-    return {"norm1": (d,), "norm2": (d,),
-            "attn": spec_attn(d, cfg.n_heads, cfg.n_kv_heads, head_dim),
-            "mlp": spec_mlp(d, f)}
+    p: Dict[str, Any] = {"norm1": (d,), "norm2": (d,)}
+    if cfg.family == "hybrid":
+        p.update(hy.spec_hymba_block(d, cfg.n_heads, cfg.n_kv_heads,
+                                     head_dim, cfg.ssm_state))
+    else:
+        p["attn"] = spec_attn(d, cfg.n_heads, cfg.n_kv_heads, head_dim)
+    if cfg.family == "moe":
+        p["moe"] = moe_mod.spec_moe(d, f, cfg.n_experts)
+    else:
+        p["mlp"] = spec_mlp(d, f)
+    return p
 
 
 class Model(nn.Module):
@@ -84,7 +115,7 @@ class Model(nn.Module):
         if cfg.family not in FAMILIES:
             raise NotImplementedError(
                 f"the {cfg.family} family is not ported yet (ROADMAP "
-                f"queue 1, item 5)")
+                f"queue 1, models/frontend.py)")
         if wkv_backend not in WKV_BACKENDS:
             raise ValueError(f"unknown wkv_backend {wkv_backend!r}; "
                              f"expected {WKV_BACKENDS}")
@@ -105,25 +136,14 @@ class Model(nn.Module):
              ) -> "Model":
         """Draw every weight from ``generator`` (in the reference's
         distributions, not its numbers) in ``dtype``; returns self."""
-        cfg = self.cfg
-
-        def put(t: torch.Tensor) -> nn.Parameter:
-            return nn.Parameter(t.to(self.device), requires_grad=False)
-
-        def assign(lp: nn.ParameterDict, block: Dict[str, Any]) -> None:
-            for k, t in block.items():
-                if isinstance(t, dict):
-                    assign(lp[k], t)
-                else:
-                    lp[k] = put(t)
-
-        self.embed = put(init_embed(generator, cfg.vocab, cfg.d_model,
-                                    dtype))
+        cfg, dev = self.cfg, self.device
+        self.embed = _param(init_embed(generator, cfg.vocab, cfg.d_model,
+                                       dtype), dev)
         for lp in self.layers:
-            assign(lp, self._init_block(generator, dtype))
-        self.final_norm = put(torch.ones(cfg.d_model, dtype=dtype))
-        self.lm_head = put(dense_init(generator, (cfg.d_model, cfg.vocab),
-                                      dtype, scale=0.02))
+            _assign(lp, self._init_block(generator, dtype), dev)
+        self.final_norm = _param(torch.ones(cfg.d_model, dtype=dtype), dev)
+        self.lm_head = _param(dense_init(generator, (cfg.d_model, cfg.vocab),
+                                         dtype, scale=0.02), dev)
         return self
 
     def _init_block(self, generator: torch.Generator, dtype
@@ -134,21 +154,41 @@ class Model(nn.Module):
         if cfg.family == "ssm":
             return rw.init_rwkv_block(generator, d, f, hd, dtype,
                                       out_scale=rs)
-        return {"norm1": torch.ones(d, dtype=dtype),
-                "norm2": torch.ones(d, dtype=dtype),
-                "attn": init_attn(generator, d, cfg.n_heads,
-                                  cfg.n_kv_heads, hd, dtype, out_scale=rs),
-                "mlp": init_mlp(generator, d, f, dtype, out_scale=rs)}
+        p: Dict[str, Any] = {"norm1": torch.ones(d, dtype=dtype),
+                             "norm2": torch.ones(d, dtype=dtype)}
+        if cfg.family == "hybrid":
+            p.update(hy.init_hymba_block(generator, d, cfg.n_heads,
+                                         cfg.n_kv_heads, hd, cfg.ssm_state,
+                                         dtype, out_scale=rs))
+        else:
+            p["attn"] = init_attn(generator, d, cfg.n_heads, cfg.n_kv_heads,
+                                  hd, dtype, out_scale=rs)
+        if cfg.family == "moe":
+            p["moe"] = moe_mod.init_moe(generator, d, f, cfg.n_experts,
+                                        dtype, out_scale=rs)
+        else:
+            p["mlp"] = init_mlp(generator, d, f, dtype, out_scale=rs)
+        return p
 
     def n_params(self) -> int:
         return sum(p.numel() for p in self.parameters())
 
+    def n_active_params(self) -> int:
+        """MoE: count top_k of n_experts expert params; else n_params."""
+        cfg = self.cfg
+        total = self.n_params()
+        if cfg.family != "moe":
+            return total
+        expert = 3 * cfg.d_model * cfg.d_ff * cfg.n_layers
+        return total - expert * (cfg.n_experts - cfg.top_k)
+
     # -- full-sequence pass -------------------------------------------------
     def _seq_block(self, lp, x: torch.Tensor, cache_window: int,
                    emit_cache: bool
-                   ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+                   ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]],
+                              Optional[torch.Tensor]]:
         """One block over the full sequence; returns (x, cache entry or
-        None)."""
+        None, aux loss or None)."""
         cfg = self.cfg
         eps = cfg.norm_eps
         if cfg.family == "ssm":
@@ -164,7 +204,7 @@ class Model(nn.Module):
             c_out, xl_c = rw.channel_mix(lp, xc, torch.zeros_like(xc[:, 0]))
             x = x + c_out
             return x, ({"state": st, "x_last_t": xl_t, "x_last_c": xl_c}
-                       if emit_cache else None)
+                       if emit_cache else None), None
         h_in = rmsnorm(x, lp["norm1"], eps)
         entry = None
         if emit_cache:
@@ -175,31 +215,67 @@ class Model(nn.Module):
         else:
             a_out = self_attention(lp["attn"], h_in, theta=cfg.rope_theta,
                                    window=cfg.window)
-        x = x + a_out
-        x = x + mlp(lp["mlp"], rmsnorm(x, lp["norm2"], eps))
-        return x, entry
+        if cfg.family == "hybrid":
+            h0 = torch.zeros(hy.ssm_state_shape(x.shape[0], cfg.d_model,
+                                                cfg.ssm_state),
+                             dtype=torch.float32, device=x.device)
+            s_out, h_ssm = hy.ssm_scan(lp["ssm"], h_in, h0)
+            x = self._mix_heads(lp, x, a_out, s_out)
+            if emit_cache:
+                entry["ssm"] = h_ssm
+        else:
+            x = x + a_out
+        x, aux = self._ffn(lp, x)
+        return x, entry, aux
+
+    def _mix_heads(self, lp, x: torch.Tensor, a_out: torch.Tensor,
+                   s_out: torch.Tensor) -> torch.Tensor:
+        """The hybrid block's residual: the mean of the separately
+        normalised attention and SSM heads."""
+        eps = self.cfg.norm_eps
+        a_out = rmsnorm(a_out, lp["norm_attn_out"], eps)
+        s_out = rmsnorm(s_out, lp["norm_ssm_out"], eps)
+        return x + 0.5 * (a_out + s_out)
+
+    def _ffn(self, lp, x: torch.Tensor
+             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The block's FFN residual (the MoE's or the MLP's) and its aux
+        loss (None but for moe)."""
+        cfg = self.cfg
+        h2 = rmsnorm(x, lp["norm2"], cfg.norm_eps)
+        if cfg.family == "moe":
+            m_out, aux = moe_mod.moe_ffn(lp["moe"], h2, top_k=cfg.top_k,
+                                         capacity_factor=cfg.capacity_factor)
+            return x + m_out, aux
+        return x + mlp(lp["mlp"], h2), None
 
     def _run_layers(self, x: torch.Tensor, cache_window: int,
                     emit_cache: bool
-                    ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+                    ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]],
+                               torch.Tensor]:
+        """Every block in turn; returns (x, the stacked cache or None,
+        the aux loss summed over the layers)."""
         entries = []
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for lp in self.layers:
-            x, entry = self._seq_block(lp, x, cache_window, emit_cache)
+            x, entry, a = self._seq_block(lp, x, cache_window, emit_cache)
+            if a is not None:
+                aux = aux + a
             entries.append(entry)
         if not emit_cache:
-            return x, None
+            return x, None, aux
         return x, {k: torch.stack([e[k] for e in entries])
-                   for k in entries[0]}
+                   for k in entries[0]}, aux
 
     def forward(self, batch: Dict[str, Any]
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Teacher-forced logits over the full sequence.
 
-        Returns (logits (B, S, vocab), aux loss scalar)."""
+        Returns (logits (B, S, vocab), aux loss summed over the layers)."""
         x = embed(self.embed, batch["tokens"])
-        x, _ = self._run_layers(x, cache_window=1, emit_cache=False)
+        x, _, aux = self._run_layers(x, cache_window=1, emit_cache=False)
         x = rmsnorm(x, self.final_norm, self.cfg.norm_eps)
-        return x @ self.lm_head, torch.zeros((), device=x.device)
+        return x @ self.lm_head, aux
 
     # -- caches -----------------------------------------------------------
     def cache_window(self, seq_len: int) -> int:
@@ -225,6 +301,9 @@ class Model(nn.Module):
             shape = (L, B, self.cache_window(seq_len), cfg.n_kv_heads, n)
             layers = {"k": torch.zeros(shape, dtype=dtype, **z),
                       "v": torch.zeros(shape, dtype=dtype, **z)}
+        if cfg.family == "hybrid":
+            layers["ssm"] = torch.zeros((L, B, d, cfg.ssm_state),
+                                        dtype=torch.float32, **z)
         return {"layers": layers,
                 "t": torch.zeros((), dtype=torch.int32, **z)}
 
@@ -237,7 +316,7 @@ class Model(nn.Module):
         prompt length, i.e. a full-history cache)."""
         x = embed(self.embed, batch["tokens"])
         S_total = x.shape[1]
-        x, caches = self._run_layers(
+        x, caches, _ = self._run_layers(
             x, self.cache_window(seq_len or S_total), emit_cache=True)
         x = rmsnorm(x, self.final_norm, self.cfg.norm_eps)
         logits = x[:, -1] @ self.lm_head
@@ -250,21 +329,27 @@ class Model(nn.Module):
                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         cfg = self.cfg
         eps = cfg.norm_eps
-        if cfg.family == "dense":
-            a_out, k_c, v_c = decode_attention(
-                lp["attn"], rmsnorm(x, lp["norm1"], eps), cache["k"],
-                cache["v"], t, theta=cfg.rope_theta, window=cfg.window)
+        if cfg.family == "ssm":
+            xt = rmsnorm(x, lp["ln_t"], eps)
+            t_out, st, xl_t = rw.time_mix_decode(lp, xt, cache["state"],
+                                                 cache["x_last_t"])
+            x = x + t_out
+            xc = rmsnorm(x, lp["ln_c"], eps)
+            c_out, xl_c = rw.channel_mix(lp, xc, cache["x_last_c"])
+            x = x + c_out
+            return x, {"state": st, "x_last_t": xl_t, "x_last_c": xl_c}
+        h_in = rmsnorm(x, lp["norm1"], eps)
+        a_out, k_c, v_c = decode_attention(
+            lp["attn"], h_in, cache["k"], cache["v"], t,
+            theta=cfg.rope_theta, window=cfg.window)
+        entry = {"k": k_c, "v": v_c}
+        if cfg.family == "hybrid":
+            s_out, entry["ssm"] = hy.ssm_step(lp["ssm"], h_in, cache["ssm"])
+            x = self._mix_heads(lp, x, a_out, s_out)
+        else:
             x = x + a_out
-            x = x + mlp(lp["mlp"], rmsnorm(x, lp["norm2"], eps))
-            return x, {"k": k_c, "v": v_c}
-        xt = rmsnorm(x, lp["ln_t"], eps)
-        t_out, st, xl_t = rw.time_mix_decode(lp, xt, cache["state"],
-                                             cache["x_last_t"])
-        x = x + t_out
-        xc = rmsnorm(x, lp["ln_c"], eps)
-        c_out, xl_c = rw.channel_mix(lp, xc, cache["x_last_c"])
-        x = x + c_out
-        return x, {"state": st, "x_last_t": xl_t, "x_last_c": xl_c}
+        x, _ = self._ffn(lp, x)
+        return x, entry
 
     @torch.no_grad()
     def decode_step(self, cache: PyTree, token) -> Tuple[torch.Tensor,

@@ -427,13 +427,13 @@ def test_rwkv6_serving_on_the_card_matches_the_plain_scan(cuda):
     assert wkv6.wkv6.launches - before == cfg.n_layers * eng.prefill_calls
 
 
-def test_glm4_serving_on_the_card_matches_the_host(cuda):
-    """glm4-9b smoke served on the card gives the greedy tokens the host
-    gives from the same weights, in both admission modes."""
+def _card_and_host_tokens(arch, cuda):
+    """``arch``'s smoke config served on the card and on the host from the
+    same weights, in both admission modes: the greedy tokens of each."""
     from repro_torch.configs import get_arch
     from repro_torch.models import Model
     from repro_torch.serve import Request, ServeEngine
-    cfg = get_arch("glm4-9b", smoke=True)
+    cfg = get_arch(arch, smoke=True)
     sd = Model(cfg, device=cuda).init(
         torch.Generator(device=cuda).manual_seed(0)).state_dict()
     rng = np.random.default_rng(0)
@@ -448,4 +448,21 @@ def test_glm4_serving_on_the_card_matches_the_host(cuda):
             for i, p in enumerate(prompts):
                 eng.submit(Request(uid=i, prompt=p, max_new_tokens=6))
             runs.append({r.uid: r.generated for r in eng.run_until_drained()})
-        assert runs[0] == runs[1] and len(runs[0]) == len(prompts)
+        yield per_slot, runs, len(prompts)
+
+
+def test_glm4_serving_on_the_card_matches_the_host(cuda):
+    """glm4-9b smoke served on the card gives the greedy tokens the host
+    gives from the same weights, in both admission modes."""
+    for _, runs, n in _card_and_host_tokens("glm4-9b", cuda):
+        assert runs[0] == runs[1] and len(runs[0]) == n
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "llama4-maverick-400b-a17b",
+                                  "hymba-1.5b"])
+def test_moe_and_hybrid_serving_on_the_card_matches_the_host(cuda, arch):
+    """The moe smoke archs (top-2 and top-1 routing) and hymba-1.5b smoke
+    served on the card give the host's greedy tokens, in both admission
+    modes."""
+    for per_slot, runs, n in _card_and_host_tokens(arch, cuda):
+        assert runs[0] == runs[1] and len(runs[0]) == n, per_slot
