@@ -2,9 +2,10 @@
 """Chip smoke for the PyTorch/CUDA port (``src/repro_torch``).
 
 Drives the port's main paths on one CUDA card — the scheduling cycle,
-rwkv6-3b, glm4-9b, mixtral-8x7b (8 of 32 layers) and hymba-1.5b serving
-— and holds every kernel of those paths against its plain torch
-version::
+rwkv6-3b, glm4-9b, mixtral-8x7b (8 of 32 layers), hymba-1.5b,
+seamless-m4t-large-v2 and llava-next-34b (16 of 60 layers) serving, and
+rwkv6-3b training — and holds every kernel of those paths against its
+plain torch version::
 
     python3 chip_smoke.py
 
@@ -103,7 +104,35 @@ Phases, each printed as one JSON line on stdout:
 18. hybrid-parity — the dense-parity checks, with a 2-layer cut on the
              host.  The moe and hybrid paths run no hand-written kernel
              (the reference's are plain ``jnp``), so their launch counts
-             read 0.
+             read 0;
+19. encdec-serve — seamless-m4t-large-v2 FULL (24 encoder and 24
+             decoder layers, 2,034,784,256 parameters, 8.1 GB in f32, not
+             cut), the same 8 requests and engine (``max_seq=1024``, so
+             1,024 encoder frames a prefill); beside the serve numbers, a
+             profiled prefill and decode step with the device ms of the
+             encoder (``Model._encode``), of the memory's K/V
+             (``memory_kv``) and of ``cross_attention``;
+20. encdec-parity — the dense-parity checks, with a cut of 2 encoder and
+             2 decoder layers at full width on the host;
+21. vlm-serve — llava-next-34b at full width cut to 16 of 60 layers
+             (``llava-next-34b-l16``: 9,843,219,456 parameters, 39.4 GB),
+             each prompt behind its 576-patch prefix, ``max_seq=2048``;
+             a profiled prefill and decode step;
+22. vlm-parity — the dense-parity checks, with a 1-layer cut on the host;
+23. train       — rwkv6-3b FULL trained through ``TrainState``: 4 AdamW
+             steps (remat, B=4, seq 256, synthetic sticky-bigram data,
+             f32 weights, gradients and moments; the first a warm-up),
+             losses and grad norms finite, step seconds, tokens/s, peak
+             memory and the FLOP bound 8·N·D; no WKV kernel launch (the
+             step differentiates the plain scan); a fifth step profiled
+             for the device busy share;
+24. train-parity — one step of a 2-layer full-width cut (B=2, seq 64) on
+             the card against the host from the same weights and batch:
+             loss and grad norm at rtol 1e-5, each gradient leaf within
+             1e-4 of its max|g|, the parameter delta within 1e-5 where
+             |g| > 1e-5 (below it the first step is sign-like, ±lr: those
+             elements are counted and held to 2·lr).  The encdec, vlm and
+             train paths run no hand-written kernel.
 
 Then the ``{"kernels": [...]}`` line (the node-score rows also carry
 each kernel's own device duration from a ``torch.profiler`` trace), the
@@ -169,6 +198,22 @@ MOE_HOST_LAYERS = 1     # card against host at full width: 6.9 GB on the host
 MOE_TOP1_ARCH = "llama4-maverick-400b-a17b"   # its smoke config: top-1
 HYBRID_ARCH = "hymba-1.5b"
 HYBRID_HOST_LAYERS = 2
+ENCDEC_ARCH = "seamless-m4t-large-v2"
+ENCDEC_HOST_LAYERS = 2  # encoder and decoder layers of the host cut
+VLM_ARCH = "llava-next-34b"
+# 16 of 60 layers at full width: 39.4 GB of f32 weights.  The whole model
+# is 137.6 GB in f32 and fits no card.  Each prompt carries the 576-patch
+# prefix (the longest is 1,021 positions), so max_seq = 2048.
+VLM_CUT_LAYERS = 16
+VLM_MAX_SEQ = 2048
+VLM_HOST_LAYERS = 1     # card against host at full width: 5.9 GB on the host
+TRAIN_ARCH = "rwkv6-3b"
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 4, 4, 256   # step 1 is the warm-up
+TRAIN_HOST_LAYERS, TRAIN_HOST_BATCH, TRAIN_HOST_SEQ = 2, 2, 64
+TRAIN_TOL_METRIC = 1e-5  # loss, aux, grad norm: rtol, card against host
+TRAIN_TOL_GRAD = 1e-4    # of each gradient leaf's max|g|
+TRAIN_TOL_DELTA = 1e-5   # parameter delta where |g_host| > TRAIN_SIGN_LIKE
+TRAIN_SIGN_LIKE = 1e-5
 
 
 def emit(obj) -> None:
@@ -418,6 +463,40 @@ def device_busy_ms(torch, run, ranges=()) -> dict:
     return out
 
 
+def device_totals(torch, run) -> dict:
+    """Device ms of the kernels and copies ``run()`` launches, from a
+    trace of CUDA activity alone read event by event: for a window of
+    hundreds of thousands of launches (a train step), where
+    ``device_busy_ms``'s parse into host-op trees takes minutes.  The
+    five kernels that took longest, and ``gemm_ms``: the kernels whose
+    name says GEMM."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    kernel = copy = gemm = 0.0
+    launches = 0
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if "CUDA" not in str(e.device_type()):
+            continue
+        name, ms = e.name(), e.duration_ns() / 1e6
+        if "memcpy" in name.lower() or "memset" in name.lower():
+            copy += ms
+            continue
+        kernel += ms
+        launches += 1
+        if "gemm" in name.lower():
+            gemm += ms
+        entry = by_name.setdefault(name[:80], [0.0, 0])
+        entry[0] += ms
+        entry[1] += 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+    return {"kernel_ms": kernel, "copy_ms": copy, "launches": launches,
+            "gemm_ms": gemm,
+            "top": [{"name": k, "ms": ms, "count": n} for k, (ms, n) in top]}
+
+
 def wkv_inputs(np, torch, shape, types, seed: int = 0, strong=False):
     """WKV inputs on the card in the distributions of the reference's
     kernel tests: r, k, v ~ N(0, 1)/2, w = sigmoid(N(0, 1)), u ~ N/2,
@@ -522,10 +601,36 @@ def rel_err(a, b) -> float:
     return float((a - b).abs().max()) / den if den else 0.0
 
 
-def serve_cell(torch, np, dev, cfg, counters, record=None):
+def frontend_inputs(cfg, batch: int, seq_len: int) -> dict:
+    """The family's stub embeddings for a batch of ``batch`` (host
+    tensors, as the engine draws them): vlm patches, or encdec frames
+    for ``seq_len`` (``seq_len // enc_seq_divisor`` of them)."""
+    from repro_torch.models import frontend
+    if cfg.family == "vlm":
+        return {"patch_embeds": frontend.patch_embeds(cfg, batch)}
+    if cfg.family == "encdec":
+        return {"enc_embeds": frontend.frame_embeds(cfg, batch, seq_len)}
+    return {}
+
+
+def decode_read_bytes(params) -> int:
+    """Weight bytes a decode step reads: every parameter but the
+    embedding table (it gathers B rows), the encoder and its norm (their
+    work is the prefill's) and the cross-attention's K/V projections (the
+    memory's K/V are cached)."""
+    def read(name):
+        return not (name == "embed" or name.startswith("encoder.")
+                    or name == "enc_norm"
+                    or name.endswith(("xattn.wk", "xattn.wv")))
+    return sum(t.numel() * t.element_size() for k, t in params.items()
+               if read(k))
+
+
+def serve_cell(torch, np, dev, cfg, counters, record=None,
+               max_seq=DENSE_MAX_SEQ):
     """A decoder family's ``-serve`` phase: ``cfg``'s weights drawn on the
     card (f32, seed 0), a warm-up, then the 8 requests through a
-    ``ServeEngine(batch_size=4, max_seq=1024)`` with every prefill and
+    ``ServeEngine(batch_size=4, max_seq=max_seq)`` with every prefill and
     decode call timed; ``record`` (a context manager) is entered around
     that run.  Returns (the phase line, what the later phases use)."""
     import contextlib
@@ -540,15 +645,17 @@ def serve_cell(torch, np, dev, cfg, counters, record=None):
     params = model.state_dict()
     n_params = model.n_params()
     # ArchConfig.n_params() is the reference's estimate; it is exact for
-    # dense and moe, and off for hybrid (ROADMAP queue 3).
-    check(cfg.family == "hybrid" or n_params == cfg.n_params(),
+    # dense, moe and vlm, leaves out enc_norm for encdec, and is off for
+    # hybrid (ROADMAP queue 3).
+    expect = cfg.n_params() + (cfg.d_model if cfg.n_enc_layers else 0)
+    check(cfg.family == "hybrid" or n_params == expect,
           f"{cfg.name}: {n_params} parameters, the config says "
           f"{cfg.n_params()}")
     lens, prompts = serve_prompts(np, cfg.vocab, SERVE_REQUESTS)
 
     def engine_run(reqs, timings=None, batch_size=SERVE_BATCH):
         return serve_run(torch, cfg, params, dev, reqs, timings,
-                         batch_size=batch_size, max_seq=DENSE_MAX_SEQ)
+                         batch_size=batch_size, max_seq=max_seq)
 
     engine_run([(prompts[0][:64], 2), (prompts[1][:64], 2)])   # warm-up
     timings = {"_prefill": [], "_decode": []}
@@ -568,16 +675,18 @@ def serve_cell(torch, np, dev, cfg, counters, record=None):
     dec_ms = np.asarray(dec_s) * 1e3
     longest = int(np.argmax(lens))
     param_bytes = sum(t.numel() * t.element_size() for t in params.values())
-    # A decode step reads every weight but the embedding table, of which
-    # it gathers B rows.
-    step_bytes = param_bytes - params["embed"].numel() * 4
+    step_bytes = decode_read_bytes(params)
+    # What it reads of the cache: the ring (and the encdec memory), once.
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for part in ("layers", "memory")
+                      for t in engine.cache.get(part, {}).values())
     line = {"arch": cfg.name, "family": cfg.family, "dtype": "float32",
             "n_layers": cfg.n_layers, "d_model": cfg.d_model,
             "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
             "params": n_params, "param_bytes": param_bytes,
             "init_s": init_s, "requests": len(finished),
-            "max_seq": DENSE_MAX_SEQ,
-            "cache_window": engine.model.cache_window(DENSE_MAX_SEQ),
+            "max_seq": max_seq,
+            "cache_window": engine.model.cache_window(max_seq),
             "prompt_tokens": int(lens.sum()),
             "prompt_lens": [int(n) for n in lens],
             "prefill_calls": engine.prefill_calls,
@@ -595,11 +704,21 @@ def serve_cell(torch, np, dev, cfg, counters, record=None):
                 float(np.percentile(dec_ms, 75)), float(np.max(dec_ms))],
             "decode_bytes": step_bytes,
             "decode_bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3,
+            "decode_cache_bytes": cache_bytes,
+            "decode_bound_with_cache_ms":
+                (step_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3,
             "wall_s": wall, "launches": launches,
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if cfg.family == "vlm":
+        positions = int(lens.sum()) + cfg.n_prefix * len(lens)
+        line.update(prefix_tokens=cfg.n_prefix, prefill_positions=positions,
+                    prefill_positions_per_s=positions / sum(pre_s))
+    if cfg.family == "encdec":
+        line.update(encoder_frames=max_seq * 4 // cfg.enc_seq_divisor)
     return line, {"engine": engine, "finished": finished, "model": model,
                   "params": params, "lens": lens, "prompts": prompts,
-                  "pre_s": pre_s, "dec_s": dec_s, "engine_run": engine_run}
+                  "pre_s": pre_s, "dec_s": dec_s, "engine_run": engine_run,
+                  "max_seq": max_seq}
 
 
 def served_parity(torch, np, cell, forward_cfg) -> dict:
@@ -613,10 +732,13 @@ def served_parity(torch, np, cell, forward_cfg) -> dict:
     m.load_state_dict(cell["params"], assign=True)
     toks = torch.from_numpy(np.random.default_rng(1).integers(
         0, forward_cfg.vocab, size=(1, DENSE_SEQ)).astype(np.int32))
-    full, _ = m({"tokens": toks})
+    # The served memory's length (encdec) and patch prefix (vlm).
+    extra = frontend_inputs(forward_cfg, 1, cell["max_seq"] * 4)
+    with torch.no_grad():
+        full, _ = m({"tokens": toks, **extra})
     scale = float(full.abs().max())
-    lg, cache = m.prefill({"tokens": toks[:, :DENSE_PREFIX]},
-                          seq_len=DENSE_SEQ)
+    lg, cache = m.prefill({"tokens": toks[:, :DENSE_PREFIX], **extra},
+                          seq_len=DENSE_SEQ + forward_cfg.n_prefix)
     errs = [float((lg - full[:, DENSE_PREFIX - 1]).abs().max())]
     for i in range(DENSE_PREFIX, DENSE_SEQ):
         lg, cache = m.decode_step(cache, toks[:, i])
@@ -664,10 +786,11 @@ def card_vs_host(torch, np, dev, cut, prompt) -> dict:
     host = Model(cut, device="cpu")
     host.load_state_dict({k: t.cpu() for k, t in card.state_dict().items()},
                          assign=True)
-    batch = {"tokens": torch.from_numpy(prompt[None, :DENSE_PREFIX])}
+    batch = {"tokens": torch.from_numpy(prompt[None, :DENSE_PREFIX]),
+             **frontend_inputs(cut, 1, DENSE_SEQ * 4)}
     t = time.perf_counter()
-    lc, cc = card.prefill(batch, seq_len=DENSE_SEQ)
-    lh, ch = host.prefill(batch, seq_len=DENSE_SEQ)
+    lc, cc = card.prefill(batch, seq_len=DENSE_SEQ + cut.n_prefix)
+    lh, ch = host.prefill(batch, seq_len=DENSE_SEQ + cut.n_prefix)
     host_s = time.perf_counter() - t
     host_rel = rel_err(lc.cpu(), lh)
     check(host_rel <= DENSE_HOST_TOL,
@@ -682,7 +805,8 @@ def card_vs_host(torch, np, dev, cut, prompt) -> dict:
     check(toks_c == toks_h,
           f"{cut.name}: greedy tokens differ between card and host: "
           f"{toks_c} {toks_h}")
-    return {"arch": cut.name, "layers": cut.n_layers, "d_model": cut.d_model,
+    return {"arch": cut.name, "layers": cut.n_layers,
+            "enc_layers": cut.n_enc_layers, "d_model": cut.d_model,
             "vocab": cut.vocab, "params": host.n_params(),
             "prompt_len": DENSE_PREFIX, "logit_rel": host_rel,
             "tol": DENSE_HOST_TOL, "tokens": toks_c, "tokens_equal": True,
@@ -928,6 +1052,219 @@ def run_hybrid(torch, np, dev, cfg, counters, smi: str) -> None:
                         prompts[0])
     emit({"phase": "hybrid-parity", "tol": PARITY_TOL, **parity,
           "card_vs_host": host})
+
+
+def frontend_breakdown(torch, np, cell, ranges=(), inside=None) -> dict:
+    """A profiled prefill of the first prompt and a decode step of the
+    served batch: device busy against the unprofiled wall, split by op
+    (``op_split``) and by the named ``ranges``."""
+    engine, prompts = cell["engine"], cell["prompts"]
+    first = engine._solo_batch(prompts[0])
+    pre_busy = device_busy_ms(torch, lambda: engine.model.prefill(
+        first, seq_len=cell["max_seq"]), ranges)
+    dec_busy = device_busy_ms(torch, lambda: engine.model.decode_step(
+        engine.cache, torch.zeros(SERVE_BATCH, dtype=torch.int32)), ranges)
+    return {"prefill": {"prompt_len": len(prompts[0]),
+                        **op_split(pre_busy, cell["pre_s"][0] * 1e3, inside)},
+            "decode": {"batch": SERVE_BATCH,
+                       **op_split(dec_busy,
+                                  float(np.median(cell["dec_s"])) * 1e3,
+                                  inside)}}
+
+
+def run_encdec(torch, np, dev, cfg, counters, smi: str) -> None:
+    """Phases 19-20: ``cfg`` (seamless-m4t-large-v2 FULL) served with
+    ``max_seq`` encoder frames a prefill, profiled (the encoder, the
+    memory K/V and the cross-attention apart) and held against
+    ``forward``, its solo runs and a cut of 2 encoder and 2 decoder
+    layers on the host."""
+    from repro_torch.models import model as model_mod
+
+    line, cell = serve_cell(torch, np, dev, cfg, counters)
+    ranges = ((model_mod.Model, "_encode"), (model_mod, "memory_kv"),
+              (model_mod, "cross_attention"))
+    inside = {"_encode": "encoder_ms", "memory_kv": "memory_kv_ms",
+              "cross_attention": "cross_attention_ms"}
+    emit({"phase": "encdec-serve", **line,
+          "enc_layers": cfg.n_enc_layers, "nvidia_smi": smi,
+          "breakdown": frontend_breakdown(torch, np, cell, ranges, inside),
+          "breakdown_note": "encoder_ms: device ms inside Model._encode (the "
+                            "encoder stack and enc_norm); memory_kv_ms: the "
+                            "decoder layers' K/V of the memory; "
+                            "cross_attention_ms: its queries, attention and "
+                            "output projection; gemm_ms: aten::mm outside "
+                            "them"})
+    parity = served_parity(torch, np, cell, cfg)
+    prompt = cell["prompts"][0]
+    del cell
+    free_memory(torch)
+    host = card_vs_host(torch, np, dev, dataclasses.replace(
+        cfg, n_layers=ENCDEC_HOST_LAYERS, n_enc_layers=ENCDEC_HOST_LAYERS),
+        prompt)
+    emit({"phase": "encdec-parity", "tol": PARITY_TOL, **parity,
+          "card_vs_host": host})
+
+
+def run_vlm(torch, np, dev, cfg, counters, smi: str) -> None:
+    """Phases 21-22: ``cfg`` (llava-next-34b at full width, depth cut)
+    served behind its 576-patch prefix at ``max_seq`` 2048, profiled, and
+    held against ``forward``, its solo runs and a 1-layer cut on the
+    host."""
+    line, cell = serve_cell(torch, np, dev, cfg, counters,
+                            max_seq=VLM_MAX_SEQ)
+    emit({"phase": "vlm-serve", **line, "nvidia_smi": smi,
+          "breakdown": frontend_breakdown(torch, np, cell)})
+    parity = served_parity(torch, np, cell, cfg)
+    prompt = cell["prompts"][0]
+    del cell
+    free_memory(torch)
+    host = card_vs_host(torch, np, dev,
+                        dataclasses.replace(cfg, n_layers=VLM_HOST_LAYERS),
+                        prompt)
+    emit({"phase": "vlm-parity", "tol": PARITY_TOL, **parity,
+          "card_vs_host": host})
+
+
+def train_compare(torch, np, dev, cut, data) -> dict:
+    """One AdamW step (remat on) of ``cut`` on the card and on the host
+    from the same weights (drawn on the card, seed 1) and batch: loss,
+    aux and grad norm (rtol), every gradient leaf (of its max|g|), and
+    the parameter delta where the host's |g| exceeds ``TRAIN_SIGN_LIKE``;
+    below it the first step is sign-like (±lr), and those elements are
+    counted and held to 2·lr."""
+    from repro_torch.models import Model
+    from repro_torch.train import (AdamWConfig, adamw_init, loss_and_grads,
+                                   make_train_step)
+    card = Model(cut, device=dev, wkv_backend="scan").init(
+        torch.Generator(device=dev).manual_seed(1), torch.float32)
+    p0 = {k: t.cpu() for k, t in card.state_dict().items()}
+    host = Model(cut, device="cpu", wkv_backend="scan")
+    host.load_state_dict({k: t.clone() for k, t in p0.items()}, assign=True)
+    batch = next(data)
+    out = []
+    for model in (card, host):
+        t0 = time.perf_counter()
+        grads = loss_and_grads(model, batch, remat=True)[3]
+        grads = {k: g.cpu() for k, g in grads.items()}
+        _, m = make_train_step(model, AdamWConfig(), remat=True)(
+            adamw_init(dict(model.named_parameters())), batch)
+        out.append(({k: float(v) for k, v in m.items()}, grads,
+                    {k: t.detach().cpu() for k, t in
+                     model.state_dict().items()},
+                    time.perf_counter() - t0))
+    (mc, gc, pc, card_s), (mh, gh, ph, host_s) = out
+    metric_rel = {k: abs(mc[k] - mh[k]) / max(abs(mh[k]), 1e-30)
+                  for k in mh}
+    grad_rel = max(float((gc[k] - g).abs().max())
+                   / max(float(g.abs().max()), 1e-30) for k, g in gh.items())
+    lr = AdamWConfig().lr
+    delta_err = small_err = 0.0
+    small = total = 0
+    for k, g in gh.items():
+        diff = ((pc[k] - p0[k]) - (ph[k] - p0[k])).abs()
+        big = g.abs() > TRAIN_SIGN_LIKE
+        delta_err = max(delta_err, float(torch.where(big, diff, 0).max()))
+        small_err = max(small_err, float(torch.where(big, 0, diff).max()))
+        small += int((~big).sum())
+        total += g.numel()
+    check(all(r <= TRAIN_TOL_METRIC for r in metric_rel.values()),
+          f"{cut.name} train step: card against host {metric_rel}")
+    check(grad_rel <= TRAIN_TOL_GRAD,
+          f"{cut.name} gradients: card against host {grad_rel} of max|g|")
+    check(delta_err <= TRAIN_TOL_DELTA and small_err <= 2 * lr * (1 + 1e-5),
+          f"{cut.name} parameter delta: {delta_err} (|g| > "
+          f"{TRAIN_SIGN_LIKE}), {small_err} (sign-like, bound 2 lr)")
+    return {"arch": cut.name, "layers": cut.n_layers,
+            "d_model": cut.d_model, "params": host.n_params(),
+            "batch": list(batch["tokens"].shape),
+            "card": mc, "host": mh, "metric_rel": metric_rel,
+            "grad_rel_max": grad_rel, "tol_grad": TRAIN_TOL_GRAD,
+            "delta_abs_max": delta_err, "tol_delta": TRAIN_TOL_DELTA,
+            "sign_like": {"threshold": TRAIN_SIGN_LIKE, "elements": small,
+                          "share": small / total,
+                          "delta_abs_max": small_err, "bound": 2 * lr},
+            "card_s": card_s, "host_s": host_s}
+
+
+def run_train(torch, np, dev, cfg, counters, smi: str) -> None:
+    """Phases 23-24: ``cfg`` (rwkv6-3b FULL) trained 4 AdamW steps
+    (remat, B=4, seq 256, f32 weights, gradients and moments) through
+    ``TrainState``, a fifth step profiled; then one step of a 2-layer
+    full-width cut on the card against the host."""
+    from repro_torch.data import DataConfig, synthetic_batches
+    from repro_torch.train import AdamWConfig, TrainState
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = TrainState(cfg, torch.Generator(device=dev).manual_seed(0),
+                       AdamWConfig(), remat=True, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    data = synthetic_batches(cfg, DataConfig(batch=TRAIN_BATCH,
+                                             seq=TRAIN_SEQ, seed=0))
+    n_params = state.model.n_params()
+    for c in counters:
+        c.launches = 0
+    step_s = []
+    for _ in range(TRAIN_STEPS):
+        batch = next(data)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state.step(batch)            # the metrics' floats synchronise
+        step_s.append(time.perf_counter() - t)
+    launches = {c.__name__: c.launches for c in counters}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    hist = state.history
+    check(all(np.isfinite(h[k]) for h in hist for k in h),
+          f"{cfg.name} train: non-finite metrics {hist}")
+    check(launches["wkv6"] == 0,
+          f"{cfg.name} train launched the WKV kernel: {launches}")
+    timed_s = step_s[1:]
+    med = float(np.median(timed_s))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    param_bytes = n_params * 4
+    # 8·N·D (forward, remat recompute, backward) over the matmul weights:
+    # the embedding table's gather and scatter do no multiply-adds.
+    matmul_params = n_params - state.model.embed.numel()
+    flops = 8 * matmul_params * tokens
+    t_ops = flops / F32_OPS_PER_S
+    # Weights read, gradients written, moments read and written, weights
+    # written: each once.
+    t_bytes = 6 * param_bytes / HBM_BYTES_PER_S
+    t = time.perf_counter()
+    busy = device_totals(torch, lambda: state.step(next(data)))
+    profiled_s = time.perf_counter() - t
+    emit({"phase": "train", "arch": cfg.name, "dtype": "float32",
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "params": n_params, "param_bytes": param_bytes, "init_s": init_s,
+          "steps": TRAIN_STEPS, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+          "remat": True, "wkv_backend": state.model.wkv_backend,
+          "loss": [h["loss"] for h in hist[:TRAIN_STEPS]],
+          "grad_norm": [h["grad_norm"] for h in hist[:TRAIN_STEPS]],
+          "step_s": step_s, "step_s_median_after_warmup": med,
+          "tokens_per_s": tokens / med,
+          "matmul_params": matmul_params, "flops_per_step": flops,
+          "bound_s": max(t_ops, t_bytes),
+          "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+          "peak_mem_gb": peak, "launches": launches,
+          "profiled_step": {"loss": hist[-1]["loss"],
+                            "kernel_ms": busy["kernel_ms"],
+                            "copy_ms": busy["copy_ms"],
+                            "gemm_ms": busy["gemm_ms"],
+                            "kernel_launches": busy["launches"],
+                            "busy_share": (busy["kernel_ms"]
+                                           + busy["copy_ms"]) / (med * 1e3),
+                            "top": busy["top"],
+                            "seconds_with_trace": profiled_s},
+          "nvidia_smi": smi})
+    del state, busy
+    free_memory(torch)
+    cut = dataclasses.replace(cfg, n_layers=TRAIN_HOST_LAYERS,
+                              name=f"{cfg.name}-l{TRAIN_HOST_LAYERS}")
+    cmp = train_compare(torch, np, dev, cut, synthetic_batches(
+        cut, DataConfig(batch=TRAIN_HOST_BATCH, seq=TRAIN_HOST_SEQ,
+                        seed=1)))
+    emit({"phase": "train-parity", "tol_metric": TRAIN_TOL_METRIC, **cmp})
 
 
 def main() -> int:
@@ -1494,6 +1831,20 @@ def main() -> int:
     run_hybrid(torch, np, dev, get_arch(HYBRID_ARCH), counters, smi)
     free_memory(torch)
 
+    # -- 19-20. seamless-m4t-large-v2 FULL -----------------------------
+    run_encdec(torch, np, dev, get_arch(ENCDEC_ARCH), counters, smi)
+    free_memory(torch)
+
+    # -- 21-22. llava-next-34b at full width, 16 of 60 layers ----------
+    run_vlm(torch, np, dev, dataclasses.replace(
+        get_arch(VLM_ARCH), n_layers=VLM_CUT_LAYERS,
+        name=f"{VLM_ARCH}-l{VLM_CUT_LAYERS}"), counters, smi)
+    free_memory(torch)
+
+    # -- 23-24. rwkv6-3b FULL, AdamW steps -----------------------------
+    run_train(torch, np, dev, get_arch(TRAIN_ARCH), counters, smi)
+    free_memory(torch)
+
     # -- kernels line: timed at the 1M-node full-width pass ------------
     full = scale[-1]
     n1m = full["nodes_scored"]
@@ -1556,7 +1907,19 @@ def main() -> int:
                                          "the MoE dispatch, the expert "
                                          "SwiGLU and the selective scan are "
                                          "plain torch, as the reference's "
-                                         "are plain jnp"}),
+                                         "are plain jnp",
+                      "encdec_vlm_train_note": f"the {ENCDEC_ARCH}, "
+                                               f"{VLM_ARCH} and train paths "
+                                               "run no hand-written kernel: "
+                                               "the encoder, cross-attention, "
+                                               "patch prefix, loss and AdamW "
+                                               "are plain torch, as the "
+                                               "reference's are plain jnp; "
+                                               "training runs RWKV-6 through "
+                                               "the plain scan, as the "
+                                               "reference's train step does "
+                                               "(the WKV kernel has no "
+                                               "backward)"}),
           flush=True)
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

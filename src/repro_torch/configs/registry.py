@@ -3,10 +3,11 @@
 ``make_inputs`` builds small concrete batches for smoke tests, drawing
 tokens from the same ``np.random.default_rng(seed)`` stream as the
 reference package's ``configs/registry.py``, so the tokens are
-identical.  The vlm and encdec stub embeddings come from ``jax.random``
-there; they raise ``NotImplementedError`` here until those families are
-ported.  ``input_specs`` (the dry-run's shape stand-ins) waits for the
-launch slice.
+identical.  The vlm and encdec stub embeddings (N(0, 1)·0.02) come from
+``jax.random.PRNGKey(seed)`` there and from a CPU ``torch.Generator``
+seeded with ``seed`` here: the same distribution, not the same numbers.
+``input_specs`` (the dry-run's shape stand-ins) waits for the launch
+slice.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ..models.frontend import stub_normal
 from .base import ArchConfig
 
 _MODULES: Dict[str, str] = {
@@ -43,11 +45,14 @@ def get_arch(arch_id: str, smoke: bool = False) -> ArchConfig:
 
 
 def make_inputs(cfg: ArchConfig, *, batch: int, seq: int,
-                kind: str = "train", seed: int = 0
+                kind: str = "train", dtype=torch.float32, seed: int = 0
                 ) -> Dict[str, torch.Tensor]:
-    """Small concrete batches (int32 CPU tensors) for smoke tests and
-    examples."""
+    """Small concrete batches (CPU tensors: int32 tokens, ``dtype``
+    embeddings) for smoke tests and examples.  vlm: ``seq - n_prefix``
+    text tokens behind ``n_prefix`` patch embeddings; encdec: ``seq``
+    tokens and ``seq // enc_seq_divisor`` frame embeddings."""
     rng = np.random.default_rng(seed)
+    gen = torch.Generator().manual_seed(seed)
 
     def tokens(shape):
         return torch.from_numpy(
@@ -55,11 +60,18 @@ def make_inputs(cfg: ArchConfig, *, batch: int, seq: int,
 
     if kind == "decode":
         return {"token": tokens((batch,))}
-    if cfg.family in ("vlm", "encdec"):
-        raise NotImplementedError(
-            f"{cfg.family} stub embeddings are not ported yet (ROADMAP "
-            f"queue 1, models/frontend.py)")
-    out = {"tokens": tokens((batch, seq))}
+    out: Dict[str, torch.Tensor] = {}
+    if cfg.family == "vlm":
+        out["tokens"] = tokens((batch, max(1, seq - cfg.n_prefix)))
+        out["patch_embeds"] = stub_normal(
+            gen, (batch, cfg.n_prefix, cfg.d_model), dtype)
+    elif cfg.family == "encdec":
+        out["tokens"] = tokens((batch, seq))
+        out["enc_embeds"] = stub_normal(
+            gen, (batch, max(1, seq // cfg.enc_seq_divisor), cfg.d_model),
+            dtype)
+    else:
+        out["tokens"] = tokens((batch, seq))
     if kind == "train":
         out["labels"] = tokens(tuple(out["tokens"].shape))
     return out

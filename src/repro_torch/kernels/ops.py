@@ -183,7 +183,16 @@ def wkv6(r, k, v, w, u, s0, *, backend: str = "kernel"):
 
     r, k, v, w: (B, T, H, n) f32 or bf16; u: (H, n); s0: (B, H, n, n).
     Returns (o (B, T, H, n) f32, S_T (B, H, n, n) f32).  u and s0 are
-    taken in f32 and the streams contiguous (no copy where they are)."""
+    taken in f32 and the streams contiguous (no copy where they are).
+
+    ``backend="kernel"`` has no backward: with gradients on and an input
+    that requires them it raises, on every device, rather than return an
+    output cut from the graph.  Differentiate through ``"ref"``."""
+    if backend == "kernel" and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (r, k, v, w, u, s0)):
+        raise RuntimeError(
+            "wkv6 backend='kernel' has no backward; use backend='ref' "
+            "(time_mix 'scan') to differentiate")
     r, k, v, w = (t.contiguous() for t in (r, k, v, w))
     u = u.to(torch.float32).contiguous()
     s0 = s0.to(torch.float32).contiguous()

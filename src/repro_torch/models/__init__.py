@@ -1,5 +1,5 @@
-"""Model zoo of the port: the decoder-only families (``dense``, ``ssm``,
-``moe``, ``hybrid``)."""
+"""Model zoo of the port: every family of the reference's zoo (``dense``,
+``ssm``, ``moe``, ``hybrid``, ``encdec``, ``vlm``)."""
 
 from .model import Model
 

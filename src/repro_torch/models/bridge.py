@@ -4,10 +4,11 @@
 starts both packages from the same numbers: the reference's parameter
 tree as numpy arrays (``jax.tree.map(np.asarray, params)``, or what
 ``load_checkpoint`` of either package returns), with per-layer leaves
-stacked along a leading ``L`` axis, becomes the port's state dict with
-that axis unstacked into the module list.  Layer leaves may sit at any
-depth (``layers.attn.wq`` of a dense block); their key path joins with
-dots, as the port's nested ``ParameterDict`` names them.
+stacked along a leading axis (``layers``: ``n_layers`` rows; ``encoder``:
+``n_enc_layers`` rows), becomes the port's state dict with that axis
+unstacked into the module list.  Layer leaves may sit at any depth
+(``layers.attn.wq`` of a dense block); their key path joins with dots,
+as the port's nested ``ParameterDict`` names them.
 """
 
 from __future__ import annotations
@@ -25,34 +26,37 @@ def params_from_reference(cfg: ArchConfig, tree: Dict[str, Any], *,
                           device=None, dtype=None
                           ) -> Dict[str, torch.Tensor]:
     """The port's state dict (``embed``, ``layers.<l>.<key path>``,
-    ``final_norm``, ``lm_head``) for ``model.load_state_dict(sd,
-    assign=True)``.  ``dtype=None`` keeps the arrays' own type;
-    ``device=None`` is CUDA.  Raises ``ValueError`` when a layer leaf
-    does not have ``cfg.n_layers`` rows."""
+    ``encoder.<l>.<key path>``, ``enc_norm``, ``final_norm``,
+    ``lm_head``) for ``model.load_state_dict(sd, assign=True)``.
+    ``dtype=None`` keeps the arrays' own type; ``device=None`` is CUDA.
+    Raises ``ValueError`` when a stacked leaf does not have one row per
+    layer of its stack."""
     dev = resolve_device(device)
+    stacks = {"layers": (cfg.n_layers, "layers"),
+              "encoder": (cfg.n_enc_layers, "encoder layers")}
 
     def tensor(a) -> torch.Tensor:
         t = torch.from_numpy(np.array(a))          # a writable copy
         return t.to(device=dev, dtype=dtype or t.dtype)
 
-    def unstack(name: str, stacked) -> None:
+    def unstack(stack: str, name: str, stacked) -> None:
         if isinstance(stacked, dict):
             for k, sub in stacked.items():
-                unstack(f"{name}.{k}", sub)
+                unstack(stack, f"{name}.{k}", sub)
             return
-        if np.shape(stacked)[0] != cfg.n_layers:
+        n, what = stacks[stack]
+        if np.shape(stacked)[0] != n:
             raise ValueError(
-                f"layers/{name.replace('.', '/')} has "
-                f"{np.shape(stacked)[0]} rows, {cfg.name} has "
-                f"{cfg.n_layers} layers")
-        for i in range(cfg.n_layers):
-            sd[f"layers.{i}.{name}"] = tensor(stacked[i])
+                f"{stack}/{name.replace('.', '/')} has "
+                f"{np.shape(stacked)[0]} rows, {cfg.name} has {n} {what}")
+        for i in range(n):
+            sd[f"{stack}.{i}.{name}"] = tensor(stacked[i])
 
     sd: Dict[str, torch.Tensor] = {}
     for key, leaf in tree.items():
-        if key != "layers":
+        if key not in stacks:
             sd[key] = tensor(leaf)
             continue
         for name, stacked in leaf.items():
-            unstack(name, stacked)
+            unstack(key, name, stacked)
     return sd

@@ -89,9 +89,11 @@ def selective_scan(u: torch.Tensor, dt: torch.Tensor, B_t: torch.Tensor,
         sl = slice(t0, t0 + SCAN_CHUNK)
         decay = torch.exp(dt[sl, ..., None] * A)            # (c,B,d,N)
         inp = (dt[sl] * u[sl])[..., None] * B_t[sl, :, None, :]
-        hs = torch.empty_like(decay)
+        steps = []
         for i in range(decay.shape[0]):
-            h = torch.addcmul(inp[i], decay[i], h, out=hs[i])
+            h = torch.addcmul(inp[i], decay[i], h)
+            steps.append(h)
+        hs = torch.stack(steps)
         ys.append(torch.einsum("tbdn,tbn->tbd", hs, C_t[sl]))
     return torch.cat(ys).transpose(0, 1), h
 

@@ -2,8 +2,9 @@
 
 Counterparts of the reference package's ``models/layers.py``: the
 parameter initialisers, RMSNorm, the embedding lookup, RoPE, the SwiGLU
-MLP and GQA attention in its three modes (full sequence, prefill into a
-ring-buffer KV cache, one decode token against it).
+MLP, GQA attention in its three modes (full sequence, prefill into a
+ring-buffer KV cache, one decode token against it) and the encdec
+decoder's cross-attention against the encoder's K/V.
 
 Attention is the reference's chunked online softmax in plain torch,
 with its order of sums and masks: a q-chunk × kv-chunk loop, the
@@ -238,6 +239,22 @@ def self_attention(p: Params, x: torch.Tensor, *, theta: float,
     q, k, v = _qkv(p, x, positions, theta)
     o = chunked_attention(q, k, v, causal=causal, window=window)
     return _out(o, p["wo"])
+
+
+def cross_attention(p: Params, x: torch.Tensor, memory_k: torch.Tensor,
+                    memory_v: torch.Tensor) -> torch.Tensor:
+    """Decoder cross-attention against precomputed encoder K/V (no RoPE,
+    no mask)."""
+    o = chunked_attention(_heads(x, p["wq"]), memory_k, memory_v,
+                          causal=False)
+    return _out(o, p["wo"])
+
+
+def memory_kv(p: Params, memory: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The encoder memory (B, S_enc, d) as cross-attention K and V
+    (B, S_enc, Kh, hd), without RoPE."""
+    return _heads(memory, p["wk"]), _heads(memory, p["wv"])
 
 
 def prefill_attention(p: Params, x: torch.Tensor, cache_window: int, *,

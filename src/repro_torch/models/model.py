@@ -1,27 +1,39 @@
 """The model zoo: ``ArchConfig`` -> init / forward / prefill / decode.
 
-The counterpart of the reference package's ``models/model.py`` for the
-decoder-only families: ``dense`` (RoPE, GQA attention, SwiGLU MLP),
+The counterpart of the reference package's ``models/model.py`` for
+every family of the zoo: ``dense`` (RoPE, GQA attention, SwiGLU MLP),
 ``ssm`` (RWKV-6), ``moe`` (the dense block with a GShard MoE FFN,
-:mod:`.moe`) and ``hybrid`` (Hymba: parallel attention and selective-SSM
-heads, :mod:`.hymba`).  The ``encdec`` and ``vlm`` families raise
-``NotImplementedError`` until the frontends' slice lands (ROADMAP queue
-1, ``models/frontend.py``).
+:mod:`.moe`), ``hybrid`` (Hymba: parallel attention and selective-SSM
+heads, :mod:`.hymba`), ``encdec`` (a bidirectional encoder over stub
+frame embeddings, and a decoder block with cross-attention after its
+self-attention) and ``vlm`` (stub patch embeddings spliced in front of
+the text tokens; only the text positions score).  The stubs are
+:mod:`.frontend`'s.
 
 Where the reference stacks per-layer parameters along a leading ``L``
 axis and scans over them with ``lax.scan``, the port keeps one
 ``nn.ParameterDict`` per layer (nested where the reference's block is:
 ``attn``, ``mlp``, ``moe`` and ``ssm``) in an ``nn.ModuleList`` and
 loops in Python.  Parameter names are the reference's keys (``embed``,
-``layers.<l>.<key>``, ``layers.<l>.attn.wq``, ``final_norm``,
-``lm_head``), so :func:`repro_torch.models.bridge.params_from_reference`
-carries its weights across.  The cache keeps the reference's layout and
-keys: a ring-buffer KV cache ``layers.k`` and ``layers.v``
-``(L,B,W,Kh,hd)`` for every family with attention, and for ``hybrid``
-also the SSM state ``layers.ssm (L,B,d,N) f32``; for ``ssm``
-``layers.state (L,B,H,n,n) f32``, ``layers.x_last_t`` and ``x_last_c``
-``(L,B,d)``; and the clock ``t`` (a scalar, or ``(B,)`` per-row clocks
-as the serving engine keeps).
+``layers.<l>.<key>``, ``layers.<l>.attn.wq``, ``encoder.<l>.<key>``,
+``enc_norm``, ``final_norm``, ``lm_head``), so
+:func:`repro_torch.models.bridge.params_from_reference` carries its
+weights across.  The cache keeps the reference's layout and keys: a
+ring-buffer KV cache ``layers.k`` and ``layers.v`` ``(L,B,W,Kh,hd)`` for
+every family with attention, and for ``hybrid`` also the SSM state
+``layers.ssm (L,B,d,N) f32``; for ``ssm`` ``layers.state (L,B,H,n,n)
+f32``, ``layers.x_last_t`` and ``x_last_c`` ``(L,B,d)``; for ``encdec``
+the cross-attention's K/V of the encoder memory, ``memory.mk`` and
+``memory.mv`` ``(L,B,S_enc,Kh,hd)``, which decode reads and never
+changes; and the clock ``t`` (a scalar, or ``(B,)`` per-row clocks as
+the serving engine keeps; for ``vlm`` it counts the patch prefix).
+
+Parameters are built with ``requires_grad=False``: serving needs no
+graph.  A train step (:mod:`repro_torch.train.step`) turns gradients on
+for the parameters it trains; ``forward`` then builds a graph, with each
+decoder block under ``torch.utils.checkpoint`` when ``remat=True`` (the
+reference's ``jax.checkpoint`` of its scan body).  ``prefill`` and
+``decode_step`` run under ``no_grad``.
 
 A ``Model`` is built on the meta device, so it holds no memory until
 :meth:`Model.init` draws its weights or ``load_state_dict(...,
@@ -35,19 +47,21 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
 from . import hymba as hy
 from . import moe as moe_mod
 from . import rwkv6 as rw
-from .layers import (decode_attention, dense_init, embed, init_attn,
-                     init_embed, init_mlp, mlp, prefill_attention, rmsnorm,
-                     self_attention, spec_attn, spec_mlp)
+from .layers import (cross_attention, decode_attention, dense_init, embed,
+                     init_attn, init_embed, init_mlp, memory_kv, mlp,
+                     prefill_attention, rmsnorm, self_attention, spec_attn,
+                     spec_mlp)
 
 PyTree = Any
 WKV_BACKENDS = rw.TIME_MIX_BACKENDS
-FAMILIES = ("dense", "ssm", "moe", "hybrid")
+FAMILIES = ("dense", "ssm", "moe", "hybrid", "encdec", "vlm")
 
 
 def _residual_out_scale(n_layers: int) -> float:
@@ -98,7 +112,18 @@ def _block_shapes(cfg: ArchConfig, head_dim: int) -> Dict[str, Any]:
         p["moe"] = moe_mod.spec_moe(d, f, cfg.n_experts)
     else:
         p["mlp"] = spec_mlp(d, f)
+    if cfg.family == "encdec":
+        p["norm_x"] = (d,)
+        p["xattn"] = spec_attn(d, cfg.n_heads, cfg.n_kv_heads, head_dim)
     return p
+
+
+def _enc_block_shapes(cfg: ArchConfig, head_dim: int) -> Dict[str, Any]:
+    """One encoder block's parameter shapes (a dense block)."""
+    d = cfg.d_model
+    return {"norm1": (d,), "norm2": (d,),
+            "attn": spec_attn(d, cfg.n_heads, cfg.n_kv_heads, head_dim),
+            "mlp": spec_mlp(d, cfg.d_ff)}
 
 
 class Model(nn.Module):
@@ -113,9 +138,8 @@ class Model(nn.Module):
                  wkv_backend: str = "kernel") -> None:
         super().__init__()
         if cfg.family not in FAMILIES:
-            raise NotImplementedError(
-                f"the {cfg.family} family is not ported yet (ROADMAP "
-                f"queue 1, models/frontend.py)")
+            raise ValueError(f"unknown family {cfg.family!r}; expected "
+                             f"{FAMILIES}")
         if wkv_backend not in WKV_BACKENDS:
             raise ValueError(f"unknown wkv_backend {wkv_backend!r}; "
                              f"expected {WKV_BACKENDS}")
@@ -128,6 +152,11 @@ class Model(nn.Module):
         self.embed = _meta(V, d)
         self.layers = nn.ModuleList(_meta_tree(shapes)
                                     for _ in range(cfg.n_layers))
+        if cfg.n_enc_layers:
+            enc = _enc_block_shapes(cfg, self.head_dim)
+            self.encoder = nn.ModuleList(_meta_tree(enc)
+                                         for _ in range(cfg.n_enc_layers))
+            self.enc_norm = _meta(d)
         self.final_norm = _meta(d)
         self.lm_head = _meta(d, V)
 
@@ -141,6 +170,19 @@ class Model(nn.Module):
                                        dtype), dev)
         for lp in self.layers:
             _assign(lp, self._init_block(generator, dtype), dev)
+        if cfg.n_enc_layers:
+            d, hd = cfg.d_model, self.head_dim
+            rs = _residual_out_scale(cfg.n_enc_layers)
+            for lp in self.encoder:
+                _assign(lp, {
+                    "norm1": torch.ones(d, dtype=dtype),
+                    "norm2": torch.ones(d, dtype=dtype),
+                    "attn": init_attn(generator, d, cfg.n_heads,
+                                      cfg.n_kv_heads, hd, dtype,
+                                      out_scale=rs),
+                    "mlp": init_mlp(generator, d, cfg.d_ff, dtype,
+                                    out_scale=rs)}, dev)
+            self.enc_norm = _param(torch.ones(d, dtype=dtype), dev)
         self.final_norm = _param(torch.ones(cfg.d_model, dtype=dtype), dev)
         self.lm_head = _param(dense_init(generator, (cfg.d_model, cfg.vocab),
                                          dtype, scale=0.02), dev)
@@ -168,6 +210,10 @@ class Model(nn.Module):
                                         dtype, out_scale=rs)
         else:
             p["mlp"] = init_mlp(generator, d, f, dtype, out_scale=rs)
+        if cfg.family == "encdec":
+            p["norm_x"] = torch.ones(d, dtype=dtype)
+            p["xattn"] = init_attn(generator, d, cfg.n_heads,
+                                   cfg.n_kv_heads, hd, dtype, out_scale=rs)
         return p
 
     def n_params(self) -> int:
@@ -182,13 +228,35 @@ class Model(nn.Module):
         expert = 3 * cfg.d_model * cfg.d_ff * cfg.n_layers
         return total - expert * (cfg.n_experts - cfg.top_k)
 
+    # -- input assembly ---------------------------------------------------
+    def _input_seq(self, batch: Dict[str, Any]) -> torch.Tensor:
+        """Token embeddings, with the vlm patch prefix spliced in front."""
+        x = embed(self.embed, batch["tokens"])
+        if self.cfg.family == "vlm":
+            x = torch.cat([batch["patch_embeds"].to(x.device, x.dtype), x],
+                          dim=1)
+        return x
+
+    def _encode(self, enc_embeds: torch.Tensor) -> torch.Tensor:
+        """The encoder stack over the frame embeddings (bidirectional
+        self-attention with RoPE, then the MLP), under ``enc_norm``."""
+        cfg = self.cfg
+        eps = cfg.norm_eps
+        x = enc_embeds.to(self.embed.device, self.embed.dtype)
+        for lp in self.encoder:
+            x = x + self_attention(lp["attn"], rmsnorm(x, lp["norm1"], eps),
+                                   theta=cfg.rope_theta, causal=False)
+            x = x + mlp(lp["mlp"], rmsnorm(x, lp["norm2"], eps))
+        return rmsnorm(x, self.enc_norm, eps)
+
     # -- full-sequence pass -------------------------------------------------
-    def _seq_block(self, lp, x: torch.Tensor, cache_window: int,
-                   emit_cache: bool
+    def _seq_block(self, lp, x: torch.Tensor, memory: Optional[torch.Tensor],
+                   cache_window: int, emit_cache: bool
                    ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]],
                               Optional[torch.Tensor]]:
         """One block over the full sequence; returns (x, cache entry or
-        None, aux loss or None)."""
+        None, aux loss or None).  An encdec entry also holds the
+        cross-attention's memory K/V, ``mk`` and ``mv``."""
         cfg = self.cfg
         eps = cfg.norm_eps
         if cfg.family == "ssm":
@@ -225,6 +293,12 @@ class Model(nn.Module):
                 entry["ssm"] = h_ssm
         else:
             x = x + a_out
+        if cfg.family == "encdec":
+            mk, mv = memory_kv(lp["xattn"], memory)
+            xm = rmsnorm(x, lp["norm_x"], eps)
+            x = x + cross_attention(lp["xattn"], xm, mk, mv)
+            if emit_cache:
+                entry.update(mk=mk, mv=mv)
         x, aux = self._ffn(lp, x)
         return x, entry, aux
 
@@ -249,16 +323,23 @@ class Model(nn.Module):
             return x + m_out, aux
         return x + mlp(lp["mlp"], h2), None
 
-    def _run_layers(self, x: torch.Tensor, cache_window: int,
-                    emit_cache: bool
+    def _run_layers(self, x: torch.Tensor, memory: Optional[torch.Tensor],
+                    cache_window: int, emit_cache: bool, remat: bool = False
                     ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]],
                                torch.Tensor]:
         """Every block in turn; returns (x, the stacked cache or None,
-        the aux loss summed over the layers)."""
+        the aux loss summed over the layers).  ``remat``: each block runs
+        under ``torch.utils.checkpoint``, which keeps only its input and
+        recomputes the rest in the backward pass."""
         entries = []
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for lp in self.layers:
-            x, entry, a = self._seq_block(lp, x, cache_window, emit_cache)
+            args = (lp, x, memory, cache_window, emit_cache)
+            if remat:
+                x, entry, a = checkpoint(self._seq_block, *args,
+                                         use_reentrant=False)
+            else:
+                x, entry, a = self._seq_block(*args)
             if a is not None:
                 aux = aux + a
             entries.append(entry)
@@ -267,14 +348,23 @@ class Model(nn.Module):
         return x, {k: torch.stack([e[k] for e in entries])
                    for k in entries[0]}, aux
 
-    def forward(self, batch: Dict[str, Any]
+    def forward(self, batch: Dict[str, Any], remat: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Teacher-forced logits over the full sequence.
+        """Teacher-forced logits over the full sequence (for vlm, over
+        the text positions only).
 
-        Returns (logits (B, S, vocab), aux loss summed over the layers)."""
-        x = embed(self.embed, batch["tokens"])
-        x, _, aux = self._run_layers(x, cache_window=1, emit_cache=False)
+        Returns (logits (B, S_text, vocab), aux loss summed over the
+        layers).  Builds a graph where gradients are on and the
+        parameters require them; ``remat`` checkpoints each decoder
+        block."""
+        memory = (self._encode(batch["enc_embeds"])
+                  if self.cfg.n_enc_layers else None)
+        x = self._input_seq(batch)
+        x, _, aux = self._run_layers(x, memory, cache_window=1,
+                                     emit_cache=False, remat=remat)
         x = rmsnorm(x, self.final_norm, self.cfg.norm_eps)
+        if self.cfg.family == "vlm":              # only text positions score
+            x = x[:, batch["patch_embeds"].shape[1]:]
         return x @ self.lm_head, aux
 
     # -- caches -----------------------------------------------------------
@@ -304,8 +394,14 @@ class Model(nn.Module):
         if cfg.family == "hybrid":
             layers["ssm"] = torch.zeros((L, B, d, cfg.ssm_state),
                                         dtype=torch.float32, **z)
-        return {"layers": layers,
-                "t": torch.zeros((), dtype=torch.int32, **z)}
+        cache = {"layers": layers,
+                 "t": torch.zeros((), dtype=torch.int32, **z)}
+        if cfg.n_enc_layers:
+            S_enc = max(1, seq_len // cfg.enc_seq_divisor)
+            shape = (L, B, S_enc, cfg.n_kv_heads, n)
+            cache["memory"] = {"mk": torch.zeros(shape, dtype=dtype, **z),
+                               "mv": torch.zeros(shape, dtype=dtype, **z)}
+        return cache
 
     # -- prefill / decode ---------------------------------------------------
     @torch.no_grad()
@@ -313,19 +409,27 @@ class Model(nn.Module):
                 ) -> Tuple[torch.Tensor, PyTree]:
         """Run the prompt; return (last-position logits (B, vocab),
         cache).  ``seq_len`` sizes the KV cache window (defaults to the
-        prompt length, i.e. a full-history cache)."""
-        x = embed(self.embed, batch["tokens"])
+        prompt length, i.e. a full-history cache); for vlm the prompt
+        and the clock include the patch prefix."""
+        memory = (self._encode(batch["enc_embeds"])
+                  if self.cfg.n_enc_layers else None)
+        x = self._input_seq(batch)
         S_total = x.shape[1]
-        x, caches, _ = self._run_layers(
-            x, self.cache_window(seq_len or S_total), emit_cache=True)
+        x, layers, _ = self._run_layers(
+            x, memory, self.cache_window(seq_len or S_total),
+            emit_cache=True)
         x = rmsnorm(x, self.final_norm, self.cfg.norm_eps)
         logits = x[:, -1] @ self.lm_head
-        return logits, {"layers": caches,
-                        "t": torch.tensor(S_total, dtype=torch.int32,
-                                          device=x.device)}
+        cache = {"layers": layers,
+                 "t": torch.tensor(S_total, dtype=torch.int32,
+                                   device=x.device)}
+        if memory is not None:
+            cache["memory"] = {k: layers.pop(k) for k in ("mk", "mv")}
+        return logits, cache
 
     def _decode_block(self, lp, x: torch.Tensor,
-                      cache: Dict[str, torch.Tensor], t
+                      cache: Dict[str, torch.Tensor], t,
+                      memory: Optional[Dict[str, torch.Tensor]]
                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         cfg = self.cfg
         eps = cfg.norm_eps
@@ -348,6 +452,10 @@ class Model(nn.Module):
             x = self._mix_heads(lp, x, a_out, s_out)
         else:
             x = x + a_out
+        if cfg.family == "encdec":
+            xm = rmsnorm(x, lp["norm_x"], eps)
+            x = x + cross_attention(lp["xattn"], xm, memory["mk"],
+                                    memory["mv"])
         x, _ = self._ffn(lp, x)
         return x, entry
 
@@ -355,13 +463,19 @@ class Model(nn.Module):
     def decode_step(self, cache: PyTree, token) -> Tuple[torch.Tensor,
                                                           PyTree]:
         """One decode step.  token: (B,) int.  Returns (logits (B,
-        vocab), a new cache; the given one is not changed)."""
+        vocab), a new cache; the given one is not changed).  The encdec
+        memory is read, never written, and not copied: the returned cache
+        shares the given one's ``memory`` tensors, so an in-place write to
+        either (as ``ServeEngine._splice`` makes) reaches both."""
         x = embed(self.embed, torch.as_tensor(token)[:, None])
         layers = cache["layers"]
+        memory = cache.get("memory")
         entries = []
         for i, lp in enumerate(self.layers):
             x, entry = self._decode_block(
-                lp, x, {k: c[i] for k, c in layers.items()}, cache["t"])
+                lp, x, {k: c[i] for k, c in layers.items()}, cache["t"],
+                None if memory is None
+                else {k: m[i] for k, m in memory.items()})
             entries.append(entry)
         x = rmsnorm(x, self.final_norm, self.cfg.norm_eps)
         logits = x[:, -1] @ self.lm_head

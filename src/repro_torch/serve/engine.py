@@ -15,6 +15,13 @@ re-prefill the *whole* batch on every admit, one shared position clock,
 left-padded to the batch max — is kept as
 ``ServeEngine(..., per_slot_prefill=False)``.
 
+Admission builds each family's inputs as the reference's does: vlm
+prompts carry :func:`~repro_torch.models.frontend.patch_embeds`, encdec
+prompts :func:`~repro_torch.models.frontend.frame_embeds` — a fixed
+``max_seq * 4 // enc_seq_divisor`` frames per solo prefill, so that
+every slot's memory rows have one shape — and the cache's ``memory``
+rows splice with the rest.
+
 ``jax.jit`` has no counterpart here: the model runs eagerly on the
 engine's device.  Greedy decoding takes ``torch.argmax``, which returns
 the first index among equal maxima, as ``jnp.argmax`` does.
@@ -23,13 +30,14 @@ the first index among equal maxima, as ``jnp.argmax`` does.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List, Mapping, Optional
+from typing import Any, Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
+from ..models import frontend
 from ..models.model import Model
 from .step import make_decode_step, make_prefill_step
 
@@ -155,24 +163,48 @@ class ServeEngine:
     # ------------------------------------------------------------------
     # Per-slot admission (continuous batching)
     # ------------------------------------------------------------------
+    def _with_frontend(self, tokens: np.ndarray, seq_len: int
+                       ) -> Dict[str, torch.Tensor]:
+        """A prefill batch of (B, S) ``tokens``, with the family's stub
+        embeddings: ``B`` patch prefixes (vlm), or ``B`` rows of
+        ``seq_len // enc_seq_divisor`` frames (encdec)."""
+        batch = {"tokens": torch.from_numpy(tokens)}
+        B = tokens.shape[0]
+        if self.cfg.family == "vlm":
+            batch["patch_embeds"] = frontend.patch_embeds(self.cfg, B)
+        if self.cfg.family == "encdec":
+            batch["enc_embeds"] = frontend.frame_embeds(self.cfg, B, seq_len)
+        return batch
+
+    def _solo_batch(self, seq: np.ndarray) -> Dict[str, torch.Tensor]:
+        # Fixed encoder length: the spliced memory rows must share one
+        # shape across slots regardless of prompt length.
+        return self._with_frontend(seq[None, :], self.max_seq * 4)
+
     def _batch_template(self, solo: PyTree) -> PyTree:
         """Empty B-slot cache shaped like a solo (B=1) prefill cache."""
         def z(x):
             return torch.zeros((x.shape[0], self.B) + tuple(x.shape[2:]),
                                dtype=x.dtype, device=x.device)
-        return {"layers": {k: z(x) for k, x in solo["layers"].items()},
-                "t": torch.zeros((self.B,), dtype=torch.int32,
-                                 device=self.device)}
+        tpl = {"layers": {k: z(x) for k, x in solo["layers"].items()},
+               "t": torch.zeros((self.B,), dtype=torch.int32,
+                                device=self.device)}
+        if "memory" in solo:
+            tpl["memory"] = {k: z(x) for k, x in solo["memory"].items()}
+        return tpl
 
     def _splice(self, cache: PyTree, solo: PyTree, i: int) -> None:
         """Copy the solo cache's single batch row into slot ``i``.
 
         In place, where the reference builds a new cache with
         ``.at[:, i].set``: the engine owns ``self.cache`` (the template,
-        or what ``decode_step`` returned, which never aliases its input),
-        so no one else sees the write."""
-        for k, c in cache["layers"].items():
-            c[:, i].copy_(solo["layers"][k][:, 0])
+        or what ``decode_step`` returned, which never aliases its input
+        but for the encdec ``memory``, shared with the engine's earlier
+        cache, which the engine no longer holds), so no one else sees the
+        write."""
+        for part in ("layers", "memory"):
+            for k, c in cache.get(part, {}).items():
+                c[:, i].copy_(solo[part][k][:, 0])
         cache["t"][i] = solo["t"]
 
     def _admit_per_slot(self) -> None:
@@ -186,8 +218,7 @@ class ServeEngine:
             req = self.queue.pop(0)
             seq = np.concatenate([req.prompt,
                                   np.asarray(req.generated, np.int32)])
-            logits, solo = self._prefill(
-                {"tokens": torch.from_numpy(seq[None, :])})
+            logits, solo = self._prefill(self._solo_batch(seq))
             self.prefill_calls += 1
             self.prefill_tokens += len(seq)
             if self.cache is None:
@@ -226,7 +257,7 @@ class ServeEngine:
             toks[i, -len(seq):] = seq          # left-pad
             self.prefill_tokens += len(seq)
         self.prefill_calls += 1
-        logits, self.cache = self._prefill({"tokens": torch.from_numpy(toks)})
+        logits, self.cache = self._prefill(self._with_frontend(toks, S * 4))
         self.last_token = _greedy(logits)
 
     def _admit(self) -> None:

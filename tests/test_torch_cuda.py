@@ -466,3 +466,75 @@ def test_moe_and_hybrid_serving_on_the_card_matches_the_host(cuda, arch):
     modes."""
     for per_slot, runs, n in _card_and_host_tokens(arch, cuda):
         assert runs[0] == runs[1] and len(runs[0]) == n, per_slot
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "llava-next-34b"])
+def test_encdec_and_vlm_on_the_card_decode_like_forward_and_serve_like_the_host(
+        cuda, arch):
+    """The encdec and vlm smoke configs on the card: prefill + decode
+    within 1e-3 of ``forward`` (the reference's own tolerance), and the
+    greedy tokens the host gives from the same weights in both admission
+    modes (the stub embeddings come from a CPU generator, so both devices
+    see the same ones)."""
+    from repro_torch.configs import get_arch, make_inputs
+    from repro_torch.models import Model
+    cfg = get_arch(arch, smoke=True)
+    model = Model(cfg, device=cuda).init(
+        torch.Generator(device=cuda).manual_seed(0))
+    b = make_inputs(cfg, batch=2, seq=24 + cfg.n_prefix, kind="prefill")
+    with torch.no_grad():
+        full, _ = model(b)
+    k = 16
+    lg, cache = model.prefill(dict(b, tokens=b["tokens"][:, :k]),
+                              seq_len=24 + cfg.n_prefix)
+    errs = [float((lg - full[:, k - 1]).abs().max())]
+    for i in range(k, 24):
+        lg, cache = model.decode_step(cache, b["tokens"][:, i])
+        errs.append(float((lg - full[:, i]).abs().max()))
+    assert max(errs) < 1e-3, errs
+    for per_slot, runs, n in _card_and_host_tokens(arch, cuda):
+        assert runs[0] == runs[1] and len(runs[0]) == n, per_slot
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "seamless-m4t-large-v2",
+                                  "llava-next-34b", "mixtral-8x7b"])
+def test_train_step_on_the_card_matches_the_host(cuda, arch):
+    """One AdamW step (remat on) of a smoke config on the card and on the
+    host from the same weights and batch: loss and grad norm at rtol
+    1e-5, the parameter delta within 1e-5 wherever the host gradient
+    exceeds 1e-5 (below that the first step is sign-like: ±lr), and no
+    WKV kernel launch (training runs RWKV-6 through "scan")."""
+    from repro_torch.configs import get_arch, make_inputs
+    from repro_torch.models import Model
+    from repro_torch.train import (AdamWConfig, adamw_init, loss_and_grads,
+                                   make_train_step)
+    cfg = get_arch(arch, smoke=True)
+    sd = Model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0)).state_dict()
+    batch = make_inputs(cfg, batch=2, seq=32 + cfg.n_prefix, kind="train")
+    out = []
+    launches = wkv6.wkv6.launches
+    for dev in (cuda, torch.device("cpu")):
+        model = Model(cfg, device=dev, wkv_backend="scan")
+        model.load_state_dict({k: t.to(dev, copy=True)
+                               for k, t in sd.items()}, assign=True)
+        grads = loss_and_grads(model, batch, remat=True)[3]
+        step = make_train_step(model, AdamWConfig(), remat=True)
+        _, m = step(adamw_init(dict(model.named_parameters())), batch)
+        out.append(({k: float(v) for k, v in m.items()},
+                    {k: g.cpu() for k, g in grads.items()},
+                    {k: t.detach().cpu() for k, t in
+                     model.state_dict().items()}))
+    assert wkv6.wkv6.launches == launches
+    (mc, gc, pc), (mh, gh, ph) = out
+    for key in ("loss", "grad_norm", "total_loss"):
+        assert abs(mc[key] - mh[key]) <= 1e-5 * abs(mh[key]), key
+    lr = AdamWConfig().lr
+    for key, g in gh.items():
+        assert float((gc[key] - g).abs().max()) <= \
+            1e-4 * float(g.abs().max()), key
+        diff = ((pc[key] - sd[key]) - (ph[key] - sd[key])).abs()
+        big = g.abs() > 1e-5
+        assert float(torch.where(big, diff, 0).max()) <= 1e-5, key
+        assert float(torch.where(big, 0, diff).max()) <= \
+            2 * lr * (1 + 1e-5), key

@@ -266,9 +266,15 @@ def test_bridge_rejects_a_tree_of_another_depth(smoke):
 
 
 def test_unported_families_raise():
+    """Every family of the zoo is ported now (the vlm and encdec smoke
+    configs build); a family the zoo does not have raises."""
     for arch in ("llava-next-34b", "seamless-m4t-large-v2"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Model(configs.get_arch(arch, smoke=True), device="cpu")
+        cfg = configs.get_arch(arch, smoke=True)
+        assert Model(cfg, device="cpu").cfg.family == cfg.family
+    other = dataclasses.replace(configs.get_arch("glm4-9b", smoke=True),
+                                family="rnn")
+    with pytest.raises(ValueError, match="unknown family"):
+        Model(other, device="cpu")
     with pytest.raises(ValueError, match="wkv_backend"):
         Model(configs.get_arch("rwkv6-3b", smoke=True), device="cpu",
               wkv_backend="pallas")
@@ -408,10 +414,17 @@ def test_make_inputs_same_tokens():
             for key, t in got.items():
                 assert t.dtype == torch.int32
                 np.testing.assert_array_equal(t.numpy(), np.asarray(want[key]))
+    # vlm and encdec: the same tokens too, beside their stub embeddings
+    # (tests/test_torch_frontend.py holds those).
     for arch in ("llava-next-34b", "seamless-m4t-large-v2"):
-        with pytest.raises(NotImplementedError):
-            configs.make_inputs(configs.get_arch(arch, smoke=True), batch=1,
-                                seq=8)
+        cfg, rcfg = (c.get_arch(arch, smoke=True)
+                     for c in (configs, ref_configs))
+        got = configs.make_inputs(cfg, batch=1, seq=20, seed=4)
+        want = ref_configs.make_inputs(rcfg, batch=1, seq=20, seed=4)
+        assert got.keys() == want.keys()
+        for key in ("tokens", "labels"):
+            np.testing.assert_array_equal(got[key].numpy(),
+                                          np.asarray(want[key]))
     with pytest.raises(KeyError):
         configs.get_arch("gpt-5")
 
