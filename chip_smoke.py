@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch/CUDA port (``src/repro_torch``).
 
-Drives the port's main paths on one CUDA card — the scheduling cycle,
-rwkv6-3b, glm4-9b, mixtral-8x7b (8 of 32 layers), hymba-1.5b,
+Drives the port's main paths on one CUDA card — the scheduling cycle
+(with cluster dynamics, tidal autoscaling and cycle pipelining), the
+serving fabric, rwkv6-3b, glm4-9b, mixtral-8x7b (8 of 32 layers), hymba-1.5b,
 seamless-m4t-large-v2 and llava-next-34b (16 of 60 layers) serving, and
 rwkv6-3b training — and holds every kernel of those paths against its
 plain torch version::
@@ -37,6 +38,21 @@ Phases, each printed as one JSON line on stdout:
              downloads; written inline here) and against itself with its
              cached views rebuilt on every call, in turns, at 33, 160,
              10k and 1M nodes: median host µs a call;
+6c. tidal  — one simulated day of co-scheduling on the §5.1 cluster:
+             8 tidal inference services (8-GPU replicas, 4–60 each, peak
+             at 14 h, a decision every 900 s) over a 1,200-job
+             preemptible training backlog of 8–128 GPUs, node failures
+             (30-day MTBF, 30-minute repairs) and checkpoint-restart,
+             seed 0, through ``Simulator.run`` on the card and with the
+             host numpy backend: placements byte-identical, reports,
+             dynamics summaries, demand logs, failures, interrupts and
+             preemptions equal, launches > 0; both walls, the seam's
+             calls and µs a call;
+6d. pipeline — the §5.1 replay with ``pipelined_cycles=True`` on the
+             card: placements and report equal to the unpipelined run,
+             no speculation error, every speculation accounted for, and
+             hits, misses, conflicts and score passes equal to a
+             pipelined host numpy run;
 7. wkv-sweep    — the chunked WKV kernel against its plain version at
              the reference's test shapes, at T ∈ {1, 37, 513}, at the
              serve shape, at the chunk's edges (T = 15, 16, 17) and under
@@ -61,6 +77,18 @@ Phases, each printed as one JSON line on stdout:
 9. serve-parity — solo prefills of the first two prompts with the WKV
              kernel and with the plain step loop: logits, states and
              greedy tokens agree;
+9b. fabric — a ``ReplicaPool`` of rwkv6-3b and hymba-1.5b (FULL
+             configs, 4 slots) routes ``request_trace(2000, seed=0)``
+             through each built-in router (the same metrics when routed
+             again); ``Replica.build_engine`` materialises both on the
+             card (seeded f32 weights drawn there, ``max_seq=1024``) and
+             serves the first 8 requests round-robin sent each
+             (``to_engine_request(max_prompt=512, max_new=16)``): batched
+             tokens equal solo (B=1) runs, the WKV kernel once per layer
+             per prefill; then the pool at the token rates just measured
+             feeds ``demand_service`` into a ``TidalAutoscaler`` over
+             8,000 GPUs for the trace's span, on the card and with numpy:
+             placements identical, the fleet reaches the peak target;
 10. dense-serve — glm4-9b at full width (f32, seeded weights drawn on
              the card, 9.4e9 parameters) behind a ``ServeEngine(
              batch_size=4, max_seq=1024)``: the same 8 prompt lengths and
@@ -214,6 +242,25 @@ TRAIN_TOL_METRIC = 1e-5  # loss, aux, grad norm: rtol, card against host
 TRAIN_TOL_GRAD = 1e-4    # of each gradient leaf's max|g|
 TRAIN_TOL_DELTA = 1e-5   # parameter delta where |g_host| > TRAIN_SIGN_LIKE
 TRAIN_SIGN_LIKE = 1e-5
+# The co-scheduling day: training_cluster_topology(8000) (1,000 nodes x 8
+# GPUs), 8 inference services of 8-GPU replicas riding one diurnal tide
+# (4-60 replicas each, peak at 14 h, a decision every 900 s) over a
+# 1,200-job preemptible training backlog of 8-128 GPUs, node failures at
+# a 30-day MTBF with 30-minute repairs, checkpoint-restart every 600 s.
+TIDAL_SERVICES, TIDAL_MIN, TIDAL_MAX = 8, 4, 60
+TIDAL_JOBS = 1200
+TIDAL_SIZES = (8, 16, 32, 64, 128)
+TIDAL_SIZE_PROBS = (.3, .25, .2, .15, .1)
+TIDAL_MTBF_S, TIDAL_REPAIR_S = 30 * 86_400.0, 1800.0
+# The serving fabric: a pool of these FULL-config replicas, 4 slots each,
+# behind each built-in router; the first FABRIC_SERVED requests the
+# round-robin router sent to each replica served on the card.
+FABRIC_ARCHS = ("rwkv6-3b", "hymba-1.5b")
+FABRIC_ROUTERS = ("RoundRobinRouter", "LeastLoadedRouter",
+                  "CapabilityCostRouter")
+FABRIC_REQUESTS, FABRIC_SERVED = 2000, 8
+FABRIC_MAX_SEQ, FABRIC_MAX_PROMPT, FABRIC_MAX_NEW = 1024, 512, 16
+FABRIC_GPUS_PER_REPLICA, FABRIC_MAX_REPLICAS = 8, 60
 
 
 def emit(obj) -> None:
@@ -1267,6 +1314,320 @@ def run_train(torch, np, dev, cfg, counters, smi: str) -> None:
     emit({"phase": "train-parity", "tol_metric": TRAIN_TOL_METRIC, **cmp})
 
 
+
+def scheduling_outcome(res) -> dict:
+    """What a simulator run decided: placements, the metric report, the
+    loop's counters and, with dynamics, its summary."""
+    return {"placements": placement_key(res.jobs),
+            "report": res.metrics.report(), "cycles": res.cycles,
+            "failures": res.failures, "interrupts": res.interrupts,
+            "preemptions": res.preemptions,
+            "dynamics": None if res.dynamics is None
+            else res.dynamics.as_dict()}
+
+
+def demand_log(scaler) -> list:
+    return [dataclasses.astuple(s) for s in scaler.demand_log]
+
+
+def tidal_day(core, device, backend: str):
+    """One simulated day of tidal co-scheduling (the ``TIDAL_*``
+    constants) through ``Simulator.run`` with ``backend``; returns (the
+    result, the autoscaler, wall seconds)."""
+    topo = core.training_cluster_topology(8000)
+    state = core.ClusterState.create(topo)
+    scaler = core.TidalAutoscaler(
+        [core.TidalService(name=f"svc{i}", tenant="svc", gpus_per_replica=8,
+                           min_replicas=TIDAL_MIN, max_replicas=TIDAL_MAX,
+                           peak_hour=14.0) for i in range(TIDAL_SERVICES)],
+        interval_s=900.0)
+    dynamics = core.DynamicsConfig(
+        plugins=[scaler, core.NodeFailureInjector(
+            mtbf_s=TIDAL_MTBF_S, repair_s=TIDAL_REPAIR_S, shape=1.2)],
+        recovery=core.CheckpointModel(600.0, 120.0), seed=0)
+    qsch = core.QSCH(
+        core.QuotaManager({"svc": {0: 10 ** 6}, "batch": {0: 10 ** 6}}),
+        core.RSCH(topo, core.RSCHConfig(device=device,
+                                        score_backend=backend)),
+        core.QSCHConfig(policy=core.QueuePolicy.BACKFILL))
+    jobs = core.backfill_training_trace(TIDAL_JOBS, seed=0,
+                                        sizes=TIDAL_SIZES,
+                                        size_probs=TIDAL_SIZE_PROBS)
+    sim = core.Simulator(state, qsch, core.SimConfig(horizon=86_400.0,
+                                                     dynamics=dynamics))
+    t = time.perf_counter()
+    res = sim.run(jobs)
+    wall = time.perf_counter() - t
+    state.check_invariants()
+    return res, scaler, wall
+
+
+def run_tidal(core, node_score, rsch_mod, device=None) -> dict:
+    """Phase 6c: the co-scheduling day on the card and with the host
+    numpy backend; every decision, report and count must agree."""
+    counters = (node_score.node_scores, node_score.node_scores_slots)
+    for c in counters:
+        c.launches = 0
+    with CallRecorder(rsch_mod, "compute_node_scores_and_slots") as seam, \
+            CallRecorder(rsch_mod, "compute_node_scores") as seam1:
+        res, scaler, wall = tidal_day(core, device, "kernel")
+    launches = {c.__name__: c.launches for c in counters}
+    res_np, scaler_np, wall_np = tidal_day(core, device, "np")
+    got, want = scheduling_outcome(res), scheduling_outcome(res_np)
+    for key in want:
+        check(got[key] == want[key],
+              f"tidal day: {key} differs between the card and numpy")
+    check(demand_log(scaler) == demand_log(scaler_np),
+          "tidal day: the autoscaler's demand logs differ")
+    check(launches["node_scores_slots"] > 0,
+          f"tidal day never launched the score+slots kernel: {launches}")
+    check(res.failures > 0 and res.preemptions > 0
+          and scaler.replicas_started > 0,
+          "tidal day: no failure, preemption or replica to hold")
+    calls = seam.calls + seam1.calls
+    out = {"phase": "tidal", "cluster": "training_cluster_topology(8000)",
+           "services": TIDAL_SERVICES, "replicas": [TIDAL_MIN, TIDAL_MAX],
+           "backlog_jobs": TIDAL_JOBS, "sizes": TIDAL_SIZES,
+           "mtbf_days": TIDAL_MTBF_S / 86_400.0,
+           "wall_s_cuda": wall, "wall_s_host_numpy": wall_np,
+           "cycles": res.cycles, "seam_calls": calls,
+           "seam_s": seam.seconds + seam1.seconds,
+           "seam_us_per_call": (seam.seconds + seam1.seconds)
+           / max(1, calls) * 1e6,
+           "launches": launches, "failures": res.failures,
+           "interrupts": res.interrupts, "preemptions": res.preemptions,
+           "replicas_started": scaler.replicas_started,
+           "replicas_retired": scaler.replicas_retired,
+           "satisfaction": scaler.satisfaction(),
+           "dynamics": got["dynamics"], "gar": got["report"]["median_gar"],
+           "goodput_fraction": got["report"]["goodput_fraction"],
+           "mttr_s": got["report"]["mttr"],
+           "identical_to_numpy": True}
+    emit(out)
+    return out
+
+
+def run_pipeline(node_score, rsch_mod, run_51, res_unpipelined,
+                 device=None) -> dict:
+    """Phase 6d: the §5.1 replay pipelined on the card against the same
+    replay unpipelined, and against a pipelined host numpy run."""
+    counters = (node_score.node_scores, node_score.node_scores_slots)
+    for c in counters:
+        c.launches = 0
+    res, wall = run_51(device, pipelined=True)
+    launches = {c.__name__: c.launches for c in counters}
+    with CallRecorder(rsch_mod, "node_scores_np") as np_passes:
+        res_np, wall_np = run_51(device, "np", pipelined=True)
+    check(placement_key(res.jobs) == placement_key(res_unpipelined.jobs),
+          "pipelined §5.1 placements differ from the unpipelined run")
+    check(res.metrics.report() == res_unpipelined.metrics.report(),
+          "pipelined §5.1 report differs from the unpipelined run")
+    check(placement_key(res.jobs) == placement_key(res_np.jobs),
+          "pipelined §5.1 placements differ between the card and numpy")
+    stats, stats_np = dict(res.pipeline), dict(res_np.pipeline)
+    drained = stats["hits"] + stats["misses"] + stats["conflicts"]
+    check(stats["errors"] == 0, f"pipeline errors: {stats}")
+    check(stats["speculated"] > 0, f"the pipeline never speculated: {stats}")
+    check(stats["speculated"] - drained in (0, 1),
+          f"speculations unaccounted for: {stats}")
+    for key in ("speculated", "hits", "misses", "conflicts", "errors"):
+        check(stats[key] == stats_np[key],
+              f"pipeline {key}: card {stats[key]}, numpy {stats_np[key]}")
+    passes = launches["node_scores_slots"] + launches["node_scores"]
+    check(passes == np_passes.calls,
+          f"pipelined score passes: card {passes}, numpy {np_passes.calls}")
+    out = {"phase": "pipeline", "trace": "§5.1 (the main phase's)",
+           "wall_s_cuda": wall, "wall_s_host_numpy": wall_np,
+           "launches": launches, "score_passes_numpy": np_passes.calls,
+           "stats": stats, "stats_numpy": stats_np,
+           "identical_to_unpipelined": True}
+    emit(out)
+    return out
+
+
+def fabric_pool(serve, router: str, specs, trace):
+    """``specs`` behind ``router``, ``trace`` routed through it."""
+    pool = serve.ReplicaPool(specs, getattr(serve, router)())
+    pool.route_trace(trace)
+    return pool
+
+
+def fabric_metrics(pool):
+    m = pool.metrics
+    return (m.report(), m.by_class(), m.replica_share(),
+            [dataclasses.astuple(o) for o in m.outcomes])
+
+
+def run_fabric(torch, np, dev, counters, smi: str, smoke: bool = False
+               ) -> dict:
+    """Phase 9b: the serving fabric.  Routing of the ``FABRIC_*`` pool
+    through each router; both replicas' engines materialised on the card
+    with ``Replica.build_engine``, serving the requests round-robin sent
+    them (batched against solo); then the pool, at the token rates just
+    measured, exported to a ``TidalAutoscaler`` in a card ``Simulator``
+    over 8,000 GPUs, against the host numpy backend."""
+    import repro_torch.core as core
+    import repro_torch.serve as serve
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import node_score
+    from repro_torch.models import Model
+
+    trace = core.request_trace(FABRIC_REQUESTS, seed=0)
+    specs = [serve.ReplicaSpec.from_arch(a) for a in FABRIC_ARCHS]
+    routing, pools = {}, {}
+    for router in FABRIC_ROUTERS:
+        pools[router] = fabric_pool(serve, router, specs, trace)
+        got = fabric_metrics(pools[router])
+        again = fabric_metrics(fabric_pool(serve, router, specs, trace))
+        check(got == again, f"{router}: routing the trace again differs")
+        routing[router] = got[0]
+    by_uid = {r.uid: r for r in trace}
+    sent = {i: [by_uid[o.uid] for o in pools["RoundRobinRouter"].metrics
+                .outcomes if o.replica == i] for i in range(len(specs))}
+
+    engine_device = None if dev.type == "cuda" else dev
+    engines = {}
+    for idx, arch in enumerate(FABRIC_ARCHS):
+        cfg = get_arch(arch, smoke=smoke)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = Model(cfg, device=dev).init(
+            torch.Generator(device=dev).manual_seed(0),
+            torch.float32).state_dict()
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        replica = serve.Replica(specs[idx])
+
+        def requests():
+            return [serve.to_engine_request(
+                r, vocab=cfg.vocab, max_prompt=FABRIC_MAX_PROMPT,
+                max_new=FABRIC_MAX_NEW) for r in sent[idx][:FABRIC_SERVED]]
+
+        timings = {"_prefill": [], "_decode": []}
+        engine = replica.build_engine(params, max_seq=FABRIC_MAX_SEQ,
+                                      smoke=smoke, device=engine_device)
+        check(engine.device.type == dev.type and engine.B == specs[idx].slots,
+              f"{arch}: build_engine made {engine.device}, B={engine.B}")
+        for name in ("_prefill", "_decode"):
+            setattr(engine, name, timed(torch, getattr(engine, name),
+                                        timings[name]))
+        for c in counters:
+            c.launches = 0
+        reqs = requests()
+        for r in reqs:
+            engine.submit(r)
+        t = time.perf_counter()
+        batched = {r.uid: list(r.generated)
+                   for r in engine.run_until_drained()}
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = {c.__name__: c.launches for c in counters}
+        prefill_calls = engine.prefill_calls
+        check(all(ok for log in timings.values() for _, ok, _ in log),
+              f"{arch}: non-finite logits in the fabric")
+        del engine
+        solo_engine = serve.Replica(dataclasses.replace(
+            specs[idx], slots=1)).build_engine(
+                params, max_seq=FABRIC_MAX_SEQ, smoke=smoke,
+                device=engine_device)
+        solo = {}
+        for r in requests():
+            solo_engine.submit(r)
+            solo.update({d.uid: list(d.generated)
+                         for d in solo_engine.run_until_drained()})
+        check(len(batched) == len(reqs) == FABRIC_SERVED,
+              f"{arch}: served {len(batched)} of {len(reqs)} requests")
+        check(batched == solo,
+              f"{arch}: batched tokens differ from solo runs")
+        if cfg.family == "ssm":
+            check(launches["wkv6"] == cfg.n_layers * prefill_calls > 0,
+                  f"{arch}: wkv6 launches {launches} for {prefill_calls} "
+                  "prefills")
+        pre_s = [s for s, _, _ in timings["_prefill"]]
+        dec_s = [s for s, _, _ in timings["_decode"]]
+        prompt_tokens = sum(len(r.prompt) for r in reqs)
+        engines[arch] = {
+            "params": sum(t.numel() for t in params.values()),
+            "param_gb": sum(t.numel() * t.element_size()
+                            for t in params.values()) / 1e9,
+            "init_s": init_s, "requests": len(reqs),
+            "prompt_tokens": prompt_tokens,
+            "prompt_lens": [len(r.prompt) for r in reqs],
+            "prefill_calls": prefill_calls,
+            "prefill_ms_per_request": float(np.mean(pre_s)) * 1e3,
+            "prefill_tokens_per_s": prompt_tokens / sum(pre_s),
+            "decode_steps": len(dec_s),
+            "decode_ms_per_step_median": float(np.median(dec_s)) * 1e3,
+            "wall_s": wall, "launches": launches,
+            "tokens_equal_solo": True,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del solo_engine, params
+        free_memory(torch)
+
+    # The hand-off: the pool at the token rates this run measured (one
+    # token a decode step per slot), so the autoscaler sees the load the
+    # card's engines would carry.  The nominal rates (1e15 FLOP/s) serve
+    # a request in well under a millisecond: their demand never leaves
+    # the minimum of one replica.
+    measured = [dataclasses.replace(
+        spec, prefill_tokens_per_s=engines[spec.arch]["prefill_tokens_per_s"],
+        decode_tokens_per_s=1e3 / engines[spec.arch][
+            "decode_ms_per_step_median"]) for spec in specs]
+    span = trace[-1].arrival_s
+    grid = np.arange(0.0, span, 60.0)
+
+    def targets(pool):
+        svc = serve.demand_service(pool,
+                                   gpus_per_replica=FABRIC_GPUS_PER_REPLICA,
+                                   max_replicas=FABRIC_MAX_REPLICAS)
+        return svc, [svc.target_replicas(t) for t in grid]
+
+    _, nominal = targets(pools["RoundRobinRouter"])
+    sim_device = None if dev.type == "cuda" else "cpu"
+
+    def autoscaled(backend):
+        svc, want = targets(fabric_pool(serve, "RoundRobinRouter", measured,
+                                        trace))
+        scaler = core.TidalAutoscaler([svc], interval_s=60.0)
+        topo = core.training_cluster_topology(8000)
+        state = core.ClusterState.create(topo)
+        qsch = core.QSCH(core.QuotaManager({"svc": {0: 10 ** 6}}),
+                         core.RSCH(topo, core.RSCHConfig(
+                             device=sim_device, score_backend=backend)))
+        res = core.Simulator(state, qsch, core.SimConfig(
+            horizon=span, dynamics=core.DynamicsConfig(
+                plugins=[scaler]))).run([])
+        state.check_invariants()
+        return res, scaler, want
+
+    node_score.node_scores_slots.launches = 0
+    res, scaler, want = autoscaled("kernel")
+    sim_launches = node_score.node_scores_slots.launches
+    res_np, scaler_np, _ = autoscaled("np")
+    check(placement_key(res.jobs) == placement_key(res_np.jobs)
+          and res.metrics.report() == res_np.metrics.report()
+          and demand_log(scaler) == demand_log(scaler_np),
+          "fabric demand: the card's run differs from numpy")
+    check(scaler.replicas_started >= max(want),
+          f"fabric demand: {scaler.replicas_started} replicas started "
+          f"for a peak target of {max(want)}")
+    check(sim_launches > 0, "fabric demand never launched the kernel")
+    out = {"phase": "fabric", "archs": FABRIC_ARCHS,
+           "trace": f"request_trace({FABRIC_REQUESTS}, seed=0)",
+           "span_s": span, "routing": routing, "engines": engines,
+           "max_seq": FABRIC_MAX_SEQ,
+           "demand": {"target_min": min(want), "target_max": max(want),
+                      "nominal_target_max": max(nominal),
+                      "replicas_started": scaler.replicas_started,
+                      "replicas_retired": scaler.replicas_retired,
+                      "satisfaction": scaler.satisfaction(),
+                      "launches": sim_launches,
+                      "identical_to_numpy": True},
+           "nvidia_smi": smi}
+    emit(out)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1388,14 +1749,15 @@ def main() -> int:
               f"{name} kernel disagrees with its plain version: {st}")
 
     # -- 4. main path: §5.1 through Simulator.run -------------------------
-    def run_51(device, backend="kernel"):
+    def run_51(device, backend="kernel", pipelined=False):
         topo = core.training_cluster_topology(8000)
         state = core.ClusterState.create(topo)
         rsch = core.RSCH(topo, core.RSCHConfig(device=device,
                                                score_backend=backend))
         qsch = core.QSCH(core.QuotaManager({"t0": {0: 10 ** 6}}), rsch,
                          core.QSCHConfig(policy=core.QueuePolicy.BACKFILL))
-        sim = core.Simulator(state, qsch, core.SimConfig())
+        sim = core.Simulator(state, qsch, core.SimConfig(
+            pipelined_cycles=pipelined))
         jobs = core.training_trace(1000, seed=0, arrival_rate_per_hour=300)
         t = time.perf_counter()
         res = sim.run(jobs)
@@ -1584,6 +1946,12 @@ def main() -> int:
               "packed_us_median": med["packed"],
               "packed_views_rebuilt_us_median": med["packed_views_rebuilt"],
               "packed_faster": med["packed"] < med["per_column"]})
+
+    # -- 6c. tidal: the co-scheduling day, card against numpy ----------
+    tidal = run_tidal(core, node_score, rsch_mod)
+
+    # -- 6d. pipeline: the §5.1 replay with cycle pipelining -----------
+    pipe = run_pipeline(node_score, rsch_mod, run_51, res_gpu)
 
     # -- 7. wkv-sweep: the WKV kernel against its plain version ---------
     f32, bf16 = torch.float32, torch.bfloat16
@@ -1813,9 +2181,13 @@ def main() -> int:
     del scan_model, kern_model, engine, model, params, ck, cs, lk, ls
     free_memory(torch)
 
-    # -- 10-12. glm4-9b at full width: serve, breakdown, parity ---------
     counters = (node_score.node_scores, node_score.node_scores_slots,
                 wkv6.wkv6, wkv6.wkv6_step)
+    # -- 9b. fabric: routers, build_engine, demand to the autoscaler -----
+    fabric = run_fabric(torch, np, dev, counters, smi)
+    free_memory(torch)
+
+    # -- 10-12. glm4-9b at full width: serve, breakdown, parity ---------
     run_dense(torch, np, dev, get_arch(DENSE_ARCH), counters, smi)
     free_memory(torch)
 
@@ -1859,6 +2231,9 @@ def main() -> int:
          "replaces": "src/repro/kernels/node_score.py:57",
          "launches": main_launches["node_scores_slots"],
          "launches_path": "§5.1 Simulator.run",
+         "launches_tidal": tidal["launches"]["node_scores_slots"],
+         "launches_pipeline": pipe["launches"]["node_scores_slots"],
+         "launches_fabric_demand": fabric["demand"]["launches"],
          "mismatches": stats["slots"]["mismatches"],
          "max_abs_err": stats["slots"]["max_abs_err"],
          "ms": full["kernel_ms"], "plain_ms": full["plain_ms"],
@@ -1871,6 +2246,8 @@ def main() -> int:
          "replaces": "src/repro/kernels/node_score.py:41",
          "launches": per_pod_launches,
          "launches_path": "per-pod gang cycle, 10k nodes",
+         "launches_tidal": tidal["launches"]["node_scores"],
+         "launches_pipeline": pipe["launches"]["node_scores"],
          "mismatches": stats["score"]["mismatches"],
          "max_abs_err": stats["score"]["max_abs_err"],
          "ms": k_score, "plain_ms": p_score, "bound_ms": b_score,
@@ -1888,6 +2265,7 @@ def main() -> int:
          "launches": serve_launches["wkv6"],
          "launches_path": f"serve: {SERVE_REQUESTS} requests, "
                           f"{SERVE_ARCH} full width",
+         "launches_fabric": fabric["engines"][SERVE_ARCH]["launches"]["wkv6"],
          "max_abs_err": max(c["max_abs_err"] for c in sweep),
          "max_rel_err": max(c["max_rel_err"] for c in sweep),
          "ms": w_time["chunked_ms"], "step_ms": w_time["step_ms"],

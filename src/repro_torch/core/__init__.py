@@ -1,16 +1,19 @@
-"""Kant's core, ported: cluster model, QSCH, RSCH, plugin framework and
-simulator, with the Level-2 filter+score pass on a CUDA device.
+"""Kant's core, ported: cluster model, QSCH, RSCH, plugin framework
+(with the contrib plugins), simulator, cycle pipelining and cluster
+dynamics, with the Level-2 filter+score pass on a CUDA device.
 
 Same layout and names as ``repro.core``.  Host bookkeeping stays numpy;
 the device seam is :func:`repro_torch.core.scoring.compute_node_scores`
 and :func:`~repro_torch.core.scoring.compute_node_scores_and_slots`,
 which RSCH calls for every ``score_backend`` other than ``"np"``.
-Dynamics, elastic training, federation, self-tuning, cycle pipelining
-and the contrib plugins have no port yet.
+Elastic training, federation and self-tuning have no port yet.
 """
 
 from .bridge import state_from_arrays
 from .cluster import ClusterState
+from .dynamics import (CheckpointModel, ClusterDynamics, DrainWindow,
+                       DynamicsConfig, DynamicsSummary, GpuFailureInjector,
+                       NodeFailureInjector, TidalAutoscaler, TidalService)
 from .events import Event, EventBus, EventKind
 from .framework import (CycleResult, PlacementPass, ProfileSet,
                         SchedulingProfile, default_profiles)
@@ -50,7 +53,10 @@ __all__ = [
     "backfill_training_trace", "diurnal_demand", "inference_trace",
     "trace_stats", "training_trace", "QueryClass", "ServeRequest",
     "DEFAULT_QUERY_CLASSES", "request_trace",
-    "Event", "EventBus", "EventKind",
+    # events + dynamics (full surface in repro_torch.core.dynamics)
+    "Event", "EventBus", "EventKind", "ClusterDynamics", "DynamicsConfig",
+    "DynamicsSummary", "NodeFailureInjector", "GpuFailureInjector",
+    "DrainWindow", "CheckpointModel", "TidalAutoscaler", "TidalService",
     "CycleResult", "PlacementPass", "ProfileSet", "SchedulingProfile",
     "default_profiles", "profiles_from_config",
 ]

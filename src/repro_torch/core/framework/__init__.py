@@ -10,11 +10,9 @@ gang commit and preemption are all named extension points; a
 * :mod:`repro_torch.core.framework.api`      — plugin base classes + profiles;
 * :mod:`repro_torch.core.framework.registry` — name -> plugin factory registry;
 * :mod:`repro_torch.core.framework.builtin`  — the paper's behaviors as plugins
-  plus the default train/inference/best-effort profiles.
-
-The beyond-paper example plugins (``contrib.py`` of the reference
-package: GFR-aware fragmentation score, tenant and semantic
-soft-affinity) have no port yet.
+  plus the default train/inference/best-effort profiles;
+* :mod:`repro_torch.core.framework.contrib`  — beyond-paper example plugins
+  (GFR-aware fragmentation score, tenant and semantic soft-affinity).
 
 See ``docs/plugins.md`` for the extension-point contract and a worked
 "write your own Score plugin" example.
@@ -37,6 +35,8 @@ from .builtin import (BackfillHeadTimeout, BackfillPolicy,
                       WeightSetScore, binpack_pass, default_profiles,
                       ebinpack_pass, espread_plan, espread_zone_pass,
                       make_profile, spread_pass)
+from .contrib import (GfrAwareScore, SemanticSoftAffinity,
+                      TenantSoftAffinity, token_similarity)
 from .registry import available_plugins, create_plugin, register
 
 __all__ = [
@@ -58,4 +58,7 @@ __all__ = [
     "StrictFIFOPolicy", "BestEffortFIFOPolicy", "BackfillPolicy",
     "binpack_pass", "spread_pass", "ebinpack_pass", "espread_zone_pass",
     "espread_plan", "make_profile", "default_profiles",
+    # contrib
+    "GfrAwareScore", "TenantSoftAffinity", "SemanticSoftAffinity",
+    "token_similarity",
 ]

@@ -1,6 +1,6 @@
 """Plugin registry: name -> factory.
 
-Built-in plugins self-register at import; out-of-tree code
+Built-in and contrib plugins self-register at import; out-of-tree code
 registers with the same decorator, then profiles can be assembled from
 names (useful for config-driven profile construction)::
 

@@ -122,10 +122,16 @@ class QSCH:
         return self.rsch.profiles.for_job(job)
 
     def enable_pipeline(self):
-        """Optimistic cycle pipelining (§3.4 latency hiding) lives in
-        ``core/pipeline.py`` of the reference package and has no port
-        yet; ``self.pipeline`` stays None."""
-        raise NotImplementedError("cycle pipelining is not ported yet")
+        """Turn on optimistic cycle pipelining (§3.4 latency hiding —
+        see :mod:`repro_torch.core.pipeline`).  Requires the incremental
+        snapshotter: speculation refreshes the retained buffer in place,
+        which a full snapshotter does not keep."""
+        from .pipeline import CyclePipeline
+        if not isinstance(self.snapshotter, IncrementalSnapshotter):
+            raise ValueError(
+                "pipelined cycles require incremental snapshots")
+        self.pipeline = CyclePipeline(self)
+        return self.pipeline
 
     # ------------------------------------------------------------------
     # Queue management

@@ -9,10 +9,12 @@ the determinism contract).  Built-in event kinds:
 * ``END``     — a running job completes and releases devices;
 * ``SAMPLE``  — metrics sampling.
 
-The remaining kinds (NODE_FAIL, NODE_RECOVER, GPU_FAIL/RECOVER,
-DRAIN_START/END, SCALE_DECISION) belong to the cluster-dynamics
-subsystem, which has no port yet: ``SimConfig(dynamics=...)`` and
-``SimConfig(pipelined_cycles=True)`` raise ``NotImplementedError``.
+The dynamics subsystem (:mod:`repro_torch.core.dynamics`) subscribes the
+remaining kinds (NODE_FAIL, NODE_RECOVER, GPU_FAIL/RECOVER,
+DRAIN_START/END, SCALE_DECISION) when ``SimConfig.dynamics`` is set;
+with it unset the event stream — and therefore every placement and
+metric — is identical to the pre-bus simulator (asserted by
+``benchmarks/dynamics_bench.py``).
 
 Binding latency (image pull, container start — §4.2) is modeled as a
 constant delay between scheduling completion and Running, but GPU-hours
@@ -87,10 +89,8 @@ class Simulator:
             # Voluntary reshapes report through the same recorder as
             # failures (flagged, so MTTR stays failure-only).
             elastic.bind_metrics(self.metrics)
-        if self.config.dynamics is not None:
-            raise NotImplementedError("cluster dynamics are not ported yet")
-        if self.config.pipelined_cycles:
-            raise NotImplementedError("cycle pipelining is not ported yet")
+        if self.config.pipelined_cycles and qsch.pipeline is None:
+            qsch.enable_pipeline()
         self.bus = EventBus()
         self.now = 0.0
         self.cycles = 0

@@ -538,3 +538,78 @@ def test_train_step_on_the_card_matches_the_host(cuda, arch):
         assert float(torch.where(big, diff, 0).max()) <= 1e-5, key
         assert float(torch.where(big, 0, diff).max()) <= \
             2 * lr * (1 + 1e-5), key
+
+
+# -- Co-scheduling: dynamics, pipelining, the serving fabric -------------------
+def _cosched_run(backend, pipelined, device=None):
+    """A small tidal day with node failures over a training backlog, on
+    ``backend``: what it placed and reported, the dynamics summary, the
+    demand log and the pipeline's counters."""
+    import dataclasses
+
+    import repro_torch.core as T
+    topo = T.small_topology(n_nodes=64, gpus_per_node=8, nodes_per_leaf=8)
+    state = T.ClusterState.create(topo)
+    svc = T.TidalService(name="s", tenant="svc", gpus_per_replica=8,
+                         min_replicas=1, max_replicas=16, peak_hour=14.0)
+    scaler = T.TidalAutoscaler([svc], interval_s=900.0)
+    dyn = T.DynamicsConfig(plugins=[scaler, T.NodeFailureInjector(
+        mtbf_s=2 * 86_400.0, repair_s=1800.0, shape=1.2)],
+        recovery=T.CheckpointModel(600.0, 120.0), seed=0)
+    qsch = T.QSCH(T.QuotaManager({"svc": {0: 10 ** 6},
+                                  "batch": {0: 10 ** 6}}),
+                  T.RSCH(topo, T.RSCHConfig(score_backend=backend,
+                                            device=device)))
+    jobs = T.backfill_training_trace(120, seed=0, tenant="batch")
+    res = T.Simulator(state, qsch, T.SimConfig(
+        horizon=86_400.0, dynamics=dyn,
+        pipelined_cycles=pipelined)).run(jobs)
+    state.check_invariants()
+    stats = None if res.pipeline is None else {
+        k: v for k, v in res.pipeline.items() if k != "spec_seconds"}
+    return ([(j.uid, j.start_time, None if j.placement is None else
+              [(p.node, p.gpu_indices) for p in j.placement.pods])
+             for j in sorted(res.jobs, key=lambda j: j.uid)],
+            res.metrics.report(), res.dynamics.as_dict(),
+            [dataclasses.astuple(s) for s in scaler.demand_log],
+            (res.failures, res.interrupts, res.preemptions), stats)
+
+
+@pytest.mark.parametrize("pipelined", [False, True])
+def test_cosched_day_on_the_card_matches_host_numpy(cuda, pipelined):
+    """Tidal autoscaling and node failures over a backlog, unpipelined
+    and pipelined: the card's run places, reports and speculates as the
+    host numpy backend does, and launches the score kernel."""
+    before = node_score.node_scores_slots.launches
+    card = _cosched_run("kernel", pipelined)
+    launches = node_score.node_scores_slots.launches - before
+    host = _cosched_run("np", pipelined)
+    assert card == host
+    assert launches > 0
+    assert card[2]["replicas_started"] > 0 and card[4][0] > 0
+    if pipelined:
+        assert card[5]["errors"] == 0 and card[5]["speculated"] > 0
+
+
+def test_build_engine_on_the_card_matches_the_host(cuda):
+    """A fabric replica materialised on the card serves the tokens the
+    host's replica serves from the same state dict."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import request_trace
+    from repro_torch.models import Model
+    from repro_torch.serve import (Replica, ReplicaSpec, to_engine_request)
+    arch = "rwkv6-3b"
+    cfg = get_arch(arch, smoke=True)
+    sd = Model(cfg, device=cuda).init(
+        torch.Generator(device=cuda).manual_seed(0)).state_dict()
+    rep = Replica(ReplicaSpec.from_arch(arch, slots=2))
+    runs = []
+    for dev in (None, torch.device("cpu")):
+        eng = rep.build_engine({k: t.to(dev or cuda) for k, t in sd.items()},
+                               max_seq=64, smoke=True, device=dev)
+        assert eng.device.type == ("cpu" if dev else "cuda")
+        for r in request_trace(5, seed=0):
+            eng.submit(to_engine_request(r, vocab=cfg.vocab, max_prompt=24,
+                                         max_new=4))
+        runs.append({r.uid: r.generated for r in eng.run_until_drained()})
+    assert runs[0] == runs[1] and len(runs[0]) == 5

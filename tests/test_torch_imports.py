@@ -24,8 +24,18 @@ bad = sorted(m for m in sys.modules
              or (m == "jax" and sys.modules[m] is not None)
              or m.startswith("jax."))
 print(len(names), bad)
+print(" ".join(names))
 assert not bad, bad
 """
+
+#: Modules of the co-scheduling slice, which the walk must reach.
+COSCHED = ("repro_torch.core.dynamics", "repro_torch.core.dynamics.engine",
+           "repro_torch.core.dynamics.failures",
+           "repro_torch.core.dynamics.recovery",
+           "repro_torch.core.dynamics.tidal", "repro_torch.core.pipeline",
+           "repro_torch.core.framework.contrib", "repro_torch.serve.metrics",
+           "repro_torch.serve.router", "repro_torch.serve.requests",
+           "repro_torch.serve.replica")
 
 
 def _env():
@@ -38,8 +48,9 @@ def test_every_module_imports_with_jax_blocked():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=_env(),
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 20
+    count, names = out.stdout.splitlines()[:2]
+    assert int(count.split()[0]) >= 20
+    assert set(COSCHED) <= set(names.split())
 
 
 def _imports(path):

@@ -191,16 +191,3 @@ def test_default_device_raises_without_cuda(monkeypatch):
             T.E_BINPACK, backend="kernel")
     assert resolve_device("cpu").type == "cpu"
 
-
-def test_unported_slices_raise():
-    topo = T.small_topology()
-    qsch = T.QSCH(T.QuotaManager({"t0": {0: 64}}),
-                  T.RSCH(topo, T.RSCHConfig(**CPU)))
-    with pytest.raises(NotImplementedError, match="pipelining"):
-        qsch.enable_pipeline()
-    with pytest.raises(NotImplementedError, match="pipelining"):
-        T.Simulator(T.ClusterState.create(topo), qsch,
-                    T.SimConfig(pipelined_cycles=True))
-    with pytest.raises(NotImplementedError, match="dynamics"):
-        T.Simulator(T.ClusterState.create(topo), qsch,
-                    T.SimConfig(dynamics=object()))
