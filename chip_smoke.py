@@ -53,6 +53,35 @@ Phases, each printed as one JSON line on stdout:
              no speculation error, every speculation accounted for, and
              hits, misses, conflicts and score passes equal to a
              pipelined host numpy run;
+6e. elastic — ``benchmarks/elastic_bench.py``'s gates rebuilt from
+             the port: an ``ElasticManager`` with no ``ElasticSpec`` is the
+             rigid path across 3 queue policies x 2 strategies (240-job
+             trace, 512 GPUs); then elastic against rigid on 512 GPUs over
+             22 h (100 fragmenting rigid jobs, 14 elastic 128-GPU gangs
+             shrinkable to 64 and 32, node failures at a 6 h MTBF,
+             checkpoints every 600 s): elastic wins goodput and P90 JWTD,
+             reshape cost <= 10% of useful GPU-seconds.  Every run on the
+             card and with the host numpy backend: placements, reports,
+             samples, dynamics summaries, reshapes and plan-cache
+             counters equal; launches > 0;
+6f. federation — ``benchmarks/federation_bench.py``'s gates: a one-member
+             federation equal to a plain ``Simulator`` (placements and raw
+             samples) across the same matrix; spillover against static
+             partitioning on three heterogeneous members (420 jobs, 10 h);
+             then the acceptance scale, members of 10,000 / 8,000 /
+             12,000 nodes under saturating big gangs for 1,800 s,
+             standalone and federated, each timed: ms a cycle of both arms
+             on the card and with numpy, their ratio (not gated), launches,
+             seam calls and µs a call for each member.  Card and numpy
+             equal in placements, routing stats and member reports;
+6g. tuning — ``benchmarks/tuning_bench.py``'s gates: a no-op
+             ``TuningManager`` leaves the run byte-identical across the
+             matrix; the tuned stack (starvation escalator + hill climb
+             over the ``qsch.`` handles) beats the four static profiles at
+             1,024 GPUs; a second tuned run climbs over every handle, so
+             score weights change mid-run and the kernel is launched with
+             them (its param-change log equal to numpy's); the attached
+             per-cycle ms at 10k nodes (not gated);
 7. wkv-sweep    — the chunked WKV kernel against its plain version at
              the reference's test shapes, at T ∈ {1, 37, 513}, at the
              serve shape, at the chunk's edges (T = 15, 16, 17) and under
@@ -171,6 +200,7 @@ exits 2 before doing anything.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import gc
 import json
@@ -252,6 +282,30 @@ TIDAL_JOBS = 1200
 TIDAL_SIZES = (8, 16, 32, 64, 128)
 TIDAL_SIZE_PROBS = (.3, .25, .2, .15, .1)
 TIDAL_MTBF_S, TIDAL_REPAIR_S = 30 * 86_400.0, 1800.0
+# Elastic training, federation and self-tuning (phases 6e-6g): the
+# reference benchmarks' own scenarios and scales, seed 0.
+BENCH_SEED = 0
+ELASTIC_GPUS = 512
+ELASTIC_HORIZON_S = 22 * 3600.0
+FED_TENANT_REGIONS = {"tA": "r0", "tB": "r0", "tC": "r1", "tD": "r2"}
+FED_SCALE = 250                 # members of 10,000 / 8,000 / 12,000 nodes
+FED_HORIZON_S = 1800.0
+TUNING_PERIOD_S = 1800.0
+TUNING_IDENTITY_GPUS = 512
+TUNING_GPUS = 1024
+TUNING_STATIC = ("E_BINPACK", "BINPACK", "E_SPREAD", "SPREAD")
+TUNING_METRIC_SENSE = {"gar": +1, "gfr": -1, "p90_wait": -1, "p99_wait": -1,
+                       "goodput": +1}
+TUNING_METRIC_TOL = {"gar": (0.05, 0.02), "gfr": (0.05, 0.02),
+                     "p90_wait": (0.10, 120.0), "p99_wait": (0.10, 120.0),
+                     "goodput": (0.02, 0.0)}
+TUNING_OVERHEAD_NODES, TUNING_OVERHEAD_REPEATS = 10_000, 30
+# The all-handle climb's seed: its arms are ~40 (handle, direction) pairs,
+# and seeds 0 and 1 probe only inference and best-effort weights, which a
+# training trace never scores with; seed 3 probes training weights from
+# the first control period on.
+TUNING_CLIMB_SEED = 3
+WEIGHT_FIELDS = (".used", ".fit", ".group", ".topo")
 # The serving fabric: a pool of these FULL-config replicas, 4 slots each,
 # behind each built-in router; the first FABRIC_SERVED requests the
 # round-robin router sent to each replica served on the card.
@@ -1445,6 +1499,840 @@ def run_pipeline(node_score, rsch_mod, run_51, res_unpipelined,
     return out
 
 
+def node_score_launches(node_score) -> dict:
+    return {"node_scores": node_score.node_scores.launches,
+            "node_scores_slots": node_score.node_scores_slots.launches}
+
+
+def zero_launches(node_score) -> None:
+    node_score.node_scores.launches = 0
+    node_score.node_scores_slots.launches = 0
+
+
+def bench_topology(core, n_gpus: int, gpus_per_node: int = 8,
+                   nodes_per_leaf: int = 8):
+    """The reference benchmarks' scale topology
+    (``benchmarks/common.py::scale_topology``)."""
+    return core.ClusterTopology(
+        n_nodes=n_gpus // gpus_per_node, gpus_per_node=gpus_per_node,
+        nodes_per_leaf=nodes_per_leaf, leaves_per_spine=4,
+        spines_per_superspine=4, nodes_per_hbd=nodes_per_leaf,
+        nvlink_island=gpus_per_node, numa_split=gpus_per_node // 2)
+
+
+def clone_jobs(core, jobs) -> list:
+    return [core.Job(uid=j.uid, tenant=j.tenant, gpu_type=j.gpu_type,
+                     n_pods=j.n_pods, gpus_per_pod=j.gpus_per_pod,
+                     kind=j.kind, gang=j.gang, priority=j.priority,
+                     submit_time=j.submit_time, duration=j.duration,
+                     preemptible=j.preemptible, region=j.region,
+                     elastic=j.elastic, metadata=j.metadata)
+            for j in jobs]
+
+
+def placement_fingerprint(jobs) -> list:
+    """The reference benchmarks' fingerprint: in the result's order."""
+    return [(j.uid, j.start_time, j.end_time,
+             tuple((p.node, tuple(p.gpu_indices))
+                   for p in (j.placement.pods if j.placement else ())))
+            for j in jobs]
+
+
+def sample_series(metrics) -> list:
+    return [dataclasses.astuple(s) for s in metrics.samples]
+
+
+def bench_sim(core, jobs, backend: str, device, *, n_gpus: int,
+              policy=None, strategy=None, horizon=None, dynamics=None,
+              elastic=None, manager=None, preempt: bool = True):
+    """The reference's elastic and tuning benches' ``run_sim`` on the
+    port, with the score pass on ``backend``: returns (result, wall s)."""
+    topo = bench_topology(core, n_gpus)
+    state = core.ClusterState.create(topo)
+    rsch = core.RSCH(topo, core.RSCHConfig(
+        train_strategy=strategy or core.Strategy.E_BINPACK, device=device,
+        score_backend=backend))
+    qsch = core.QSCH(core.QuotaManager({"t0": {0: 10 ** 6}}), rsch,
+                     core.QSCHConfig(
+                         policy=policy or core.QueuePolicy.BACKFILL,
+                         priority_preemption=preempt),
+                     elastic=elastic)
+    sim = core.Simulator(state, qsch, core.SimConfig(
+        tick_interval=30.0, sample_interval=300.0, binding_latency=45.0,
+        horizon=horizon, dynamics=dynamics))
+    if manager is not None:
+        manager.attach(sim)
+    t = time.perf_counter()
+    res = sim.run(clone_jobs(core, jobs))
+    wall = time.perf_counter() - t
+    state.check_invariants()
+    return res, wall
+
+
+def run_outcome(res) -> dict:
+    """``scheduling_outcome`` with the reference benches' fingerprint
+    (end times included) and the raw sample series."""
+    return {**scheduling_outcome(res),
+            "fingerprint": placement_fingerprint(res.jobs),
+            "samples": sample_series(res.metrics)}
+
+
+def held_equal(tag: str, got: dict, want: dict) -> None:
+    for key in want:
+        check(got[key] == want[key],
+              f"{tag}: {key} differs between the card and numpy")
+
+
+def policy_strategy_matrix(core) -> list:
+    """The reference benches' parity matrix: 3 queue policies x 2
+    training strategies."""
+    return [(p, s) for p in (core.QueuePolicy.BACKFILL,
+                             core.QueuePolicy.STRICT_FIFO,
+                             core.QueuePolicy.BEST_EFFORT_FIFO)
+            for s in (core.Strategy.E_BINPACK, core.Strategy.BINPACK)]
+
+
+def parity_trace(core, n: int) -> list:
+    return [j for j in core.training_trace(n, seed=BENCH_SEED,
+                                           arrival_rate_per_hour=500,
+                                           mean_duration_s=2400.0)
+            if j.n_gpus <= 128]
+
+
+# -- 6e. elastic -------------------------------------------------------------
+def contended_elastic(core, np) -> list:
+    """``benchmarks/elastic_bench.py::_contended_workload`` (full size):
+    100 small rigid jobs fragment the cluster while 14 elastic 128-GPU
+    gangs (shrinkable to 64 and 32) arrive on top."""
+    rng = np.random.default_rng(BENCH_SEED)
+    jobs = []
+    window = 10.0 * 3600.0
+    for i in range(100):
+        n_gpus = int(rng.choice([8, 16, 32], p=[.45, .35, .2]))
+        jobs.append(core.Job(
+            uid=i, tenant="t0", gpu_type=0, n_pods=n_gpus // 8,
+            gpus_per_pod=8, submit_time=float(rng.uniform(0.0, window)),
+            duration=float(rng.uniform(1.0, 2.5)) * 3600.0))
+    spec = core.spec_from_artifacts(core.scaling_artifacts(
+        "bench-train", "large", [32, 64, 128], alpha=0.85))
+    ideal = spec.ideal()
+    for k in range(14):
+        jobs.append(core.Job(
+            uid=10_000 + k, tenant="t0", gpu_type=0, n_pods=ideal.n_pods,
+            gpus_per_pod=ideal.gpus_per_pod,
+            submit_time=float(rng.uniform(0.0, 0.6 * window)),
+            duration=float(rng.uniform(2.0, 3.5)) * 3600.0, elastic=spec))
+    return jobs
+
+
+def censored(jobs, horizon: float) -> list:
+    """Jobs that never started waited until the horizon."""
+    out = []
+    for j in jobs:
+        if j.start_time is None:
+            j = copy.copy(j)
+            j.start_time = horizon
+        out.append(j)
+    return out
+
+
+def elastic_outcome(res) -> dict:
+    m = res.metrics
+    return {**run_outcome(res),
+            "reshape": (m.reshapes, m.reshape_gpu_seconds,
+                        m.lost_gpu_seconds, m.overhead_gpu_seconds,
+                        m.useful_gpu_seconds),
+            "plans": [(j.uid, j.reshape_count, None if j.active_plan is None
+                       else j.active_plan.shape) for j in res.jobs]}
+
+
+def run_elastic(core, np, node_score, device=None) -> dict:
+    """Phase 6e: ``benchmarks/elastic_bench.py``'s two gates on the port,
+    each on the card and with the host numpy backend."""
+    zero_launches(node_score)
+    t0 = t_phase = time.perf_counter()
+    # Parity: an ElasticManager with no ElasticSpec is the rigid path.
+    jobs = parity_trace(core, 240)
+    walls = {"kernel": 0.0, "np": 0.0}
+    for policy, strategy in policy_strategy_matrix(core):
+        outs = {}
+        for backend in ("kernel", "np"):
+            base, w0 = bench_sim(core, jobs, backend, device,
+                                 n_gpus=ELASTIC_GPUS, policy=policy,
+                                 strategy=strategy)
+            managed, w1 = bench_sim(core, jobs, backend, device,
+                                    n_gpus=ELASTIC_GPUS, policy=policy,
+                                    strategy=strategy,
+                                    elastic=core.ElasticManager())
+            walls[backend] += w0 + w1
+            tag = f"elastic parity {policy.name} x {strategy.name}"
+            check(placement_fingerprint(base.jobs)
+                  == placement_fingerprint(managed.jobs),
+                  f"{tag} ({backend}): placements differ")
+            check(base.metrics.report() == managed.metrics.report(),
+                  f"{tag} ({backend}): reports differ")
+            outs[backend] = elastic_outcome(managed)
+        held_equal(f"elastic parity {policy.name} x {strategy.name}",
+                   outs["kernel"], outs["np"])
+    parity_s = time.perf_counter() - t0
+
+    # Elastic against rigid on a contended, failing 512-GPU cluster.
+    def dynamics():
+        return core.DynamicsConfig(
+            plugins=[core.NodeFailureInjector(mtbf_s=6 * 3600.0,
+                                              repair_s=1200.0, shape=1.2)],
+            seed=BENCH_SEED,
+            recovery=core.CheckpointModel(interval_s=600.0,
+                                          restart_overhead_s=180.0))
+
+    gate, cache = {}, {}
+    for backend in ("kernel", "np"):
+        core.elastic.plan_cache().clear()
+        jobs = contended_elastic(core, np)
+        check(contended_elastic(core, np)[-1].elastic is jobs[-1].elastic,
+              "the plan cache did not return the memoised spec")
+        cache[backend] = core.elastic.plan_cache_stats()
+        rigid_jobs = clone_jobs(core, jobs)
+        for j in rigid_jobs:
+            j.elastic = None
+        rigid, w_rigid = bench_sim(core, rigid_jobs, backend, device,
+                                   n_gpus=ELASTIC_GPUS,
+                                   horizon=ELASTIC_HORIZON_S,
+                                   dynamics=dynamics())
+        elast, w_elastic = bench_sim(core, jobs, backend, device,
+                                     n_gpus=ELASTIC_GPUS,
+                                     horizon=ELASTIC_HORIZON_S,
+                                     dynamics=dynamics(),
+                                     elastic=core.ElasticManager())
+        gate[backend] = (rigid, elast, w_rigid, w_elastic)
+    launches = node_score_launches(node_score)
+    rigid, elast, w_rigid, w_elastic = gate["kernel"]
+    held_equal("elastic gate, rigid arm", elastic_outcome(rigid),
+               elastic_outcome(gate["np"][0]))
+    held_equal("elastic gate, elastic arm", elastic_outcome(elast),
+               elastic_outcome(gate["np"][1]))
+    check(cache["kernel"] == cache["np"],
+          f"plan-cache counters differ: {cache}")
+    good = {"rigid": rigid.metrics.useful_gpu_seconds,
+            "elastic": elast.metrics.useful_gpu_seconds}
+    p90 = {"rigid": core.waiting_percentile(
+               censored(rigid.jobs, ELASTIC_HORIZON_S), 90.0),
+           "elastic": core.waiting_percentile(
+               censored(elast.jobs, ELASTIC_HORIZON_S), 90.0)}
+    overhead = elast.metrics.reshape_overhead_fraction()
+    check(good["elastic"] > good["rigid"],
+          f"elastic goodput {good} does not beat rigid")
+    check(p90["elastic"] < p90["rigid"],
+          f"elastic P90 JWTD {p90} does not beat rigid")
+    check(overhead <= 0.10, f"reshape cost {overhead} over 10%")
+    check(launches["node_scores_slots"] > 0,
+          f"elastic phase never launched the score+slots kernel: {launches}")
+    out = {"phase": "elastic", "cluster_gpus": ELASTIC_GPUS,
+           "parity_configs": len(policy_strategy_matrix(core)),
+           "parity_wall_s": parity_s, "parity_wall_s_cuda": walls["kernel"],
+           "parity_wall_s_host_numpy": walls["np"],
+           "horizon_h": ELASTIC_HORIZON_S / 3600.0, "seed": BENCH_SEED,
+           "goodput_gpu_h": {k: v / 3600.0 for k, v in good.items()},
+           "goodput_gain": good["elastic"] / good["rigid"] - 1.0,
+           "jwtd_p90_s": p90, "reshape_overhead_fraction": overhead,
+           "reshapes": elast.metrics.reshapes,
+           "failures": {"rigid": rigid.failures, "elastic": elast.failures},
+           "cycles": {"rigid": rigid.cycles, "elastic": elast.cycles},
+           "wall_s_cuda": {"rigid": w_rigid, "elastic": w_elastic},
+           "wall_s_host_numpy": {"rigid": gate["np"][2],
+                                 "elastic": gate["np"][3]},
+           "plan_cache": cache["kernel"], "launches": launches,
+           "phase_wall_s": time.perf_counter() - t_phase,
+           "identical_to_numpy": True}
+    emit(out)
+    return out
+
+
+# -- 6f. federation ----------------------------------------------------------
+def hetero_members(core, scale: int, backend: str, device):
+    """``benchmarks/federation_bench.py::hetero_members``: three members
+    of mixed node counts, GPUs a node and GPU-type pools."""
+    kw = dict(tenants=tuple(FED_TENANT_REGIONS), device=device,
+              score_backend=backend)
+    return core.FederatedCluster([
+        core.make_member("east-h100", region="r0",
+                         gpu_pools=((0, 40 * scale),), gpus_per_node=8, **kw),
+        core.make_member("west-h100", region="r1",
+                         gpu_pools=((0, 16 * scale), (1, 16 * scale)),
+                         gpus_per_node=8, **kw),
+        core.make_member("west-a100", region="r2",
+                         gpu_pools=((1, 48 * scale),), gpus_per_node=4, **kw),
+    ])
+
+
+def static_partition_select(core, np, fed):
+    """The reference bench's ``StaticPartitionSelect``: each job pinned to
+    its home-region member, else the first member hosting its type."""
+    class StaticPartitionSelect(core.framework.ClusterSelectPlugin):
+        name = "StaticPartitionSelect"
+
+        def __init__(self, regions) -> None:
+            self.regions = regions
+
+        def assign(self, job, summary) -> int:
+            fits = summary.structural_fit(job)
+            home = (self.regions.index(job.region)
+                    if job.region in self.regions else 0)
+            if fits[home]:
+                return home
+            order = np.nonzero(fits)[0]
+            if len(order):
+                return int(order[0])
+            c = summary.col(job.gpu_type)
+            if c is None:
+                return home
+            return int(np.argmax(summary.capacity[:, c]))
+
+        def score(self, job, summary):
+            out = np.zeros(summary.n_members)
+            out[self.assign(job, summary)] = 1e6
+            return out
+
+    return StaticPartitionSelect([m.region for m in fed.members])
+
+
+def skewed_workload(core) -> list:
+    """``federation_bench.py::skewed_workload`` (full size)."""
+    jobs = core.training_trace(
+        420, seed=BENCH_SEED, arrival_rate_per_hour=900.0,
+        mean_duration_s=4200.0, tenants=tuple(FED_TENANT_REGIONS),
+        tenant_regions=FED_TENANT_REGIONS, gpu_types=(0, 1),
+        type_probs=(0.65, 0.35))
+    return [j for j in jobs if j.n_gpus <= 64]
+
+
+def saturating_workload(core, np, scale: int, horizon: float) -> list:
+    """``federation_bench.py::saturating_workload``: big-gang demand at
+    ~1.35x federation capacity, arriving in the first half of the
+    horizon and outliving it."""
+    rng = np.random.default_rng([BENCH_SEED, 0xFED])
+    cap0 = (40 + 16) * scale * 8
+    cap1 = 16 * scale * 8 + 48 * scale * 4
+    specs = [(0, 64, 8, 0.95), (0, 16, 8, 0.80),
+             (1, 64, 4, 0.90), (1, 16, 4, 0.85)]
+    tenants_by_type = {0: ("tA", "tB", "tC"), 1: ("tC", "tD")}
+    jobs, uid = [], 0
+    for gpu_type, n_pods, per_pod, share in specs:
+        demand = share * (cap0 if gpu_type == 0 else cap1)
+        for _ in range(max(1, int(demand / (n_pods * per_pod)))):
+            tenant = str(rng.choice(tenants_by_type[gpu_type]))
+            jobs.append(core.Job(
+                uid=uid, tenant=tenant, region=FED_TENANT_REGIONS[tenant],
+                gpu_type=gpu_type, n_pods=n_pods, gpus_per_pod=per_pod,
+                submit_time=float(rng.uniform(0.0, horizon / 2)),
+                duration=horizon * 2.0))
+            uid += 1
+    return jobs
+
+
+def fed_outcome(res) -> dict:
+    """What a federated run decided: placements, routing stats, the
+    federated report and each member's placements, report and samples."""
+    return {"placements": placement_fingerprint(res.jobs),
+            "routing": dataclasses.astuple(res.routing),
+            "report": res.report(),
+            "counts": (res.end_time, res.cycles, res.preemptions,
+                       res.spills, [j.uid for j in res.unrouted]),
+            "members": [{"placements": placement_fingerprint(m.jobs),
+                         "report": m.metrics.report(),
+                         "samples": sample_series(m.metrics)}
+                        for m in res.members]}
+
+
+class MemberMeter:
+    """Node-score launches, seam calls and seam seconds of each member,
+    counted around its RSCH's ``schedule`` (the only way in to the
+    score pass) while ``seams`` (CallRecorders on the seam) are live."""
+
+    def __init__(self, fed, node_score, seams) -> None:
+        self.names = [m.name for m in fed.members]
+        self.nodes = [m.topology.n_nodes for m in fed.members]
+        self.launches = [0] * len(fed.members)
+        self.calls = [0] * len(fed.members)
+        self.seconds = [0.0] * len(fed.members)
+
+        def total():
+            return (sum(node_score_launches(node_score).values()),
+                    sum(s.calls for s in seams),
+                    sum(s.seconds for s in seams))
+
+        for i, m in enumerate(fed.members):
+            rsch = m.qsch.rsch
+
+            def schedule(*args, _i=i, _orig=rsch.schedule, **kw):
+                before = total()
+                out = _orig(*args, **kw)
+                after = total()
+                self.launches[_i] += after[0] - before[0]
+                self.calls[_i] += after[1] - before[1]
+                self.seconds[_i] += after[2] - before[2]
+                return out
+            rsch.schedule = schedule
+
+    def as_dict(self) -> dict:
+        return {name: {"launches": self.launches[i],
+                       "seam_calls": self.calls[i],
+                       "seam_us_per_call": self.seconds[i]
+                       / max(1, self.calls[i]) * 1e6}
+                for i, name in enumerate(self.names)}
+
+
+def run_federation(core, np, node_score, rsch_mod, device=None) -> dict:
+    """Phase 6f: ``benchmarks/federation_bench.py``'s gates on the port,
+    each on the card and with the host numpy backend; at the acceptance
+    scale (10,000 / 8,000 / 12,000 nodes) both arms are timed."""
+    zero_launches(node_score)
+    t0 = t_phase = time.perf_counter()
+    # Single-member parity: a one-member federation is a plain Simulator.
+    jobs = parity_trace(core, 240)
+    for policy, strategy in policy_strategy_matrix(core):
+        outs = {}
+        for backend in ("kernel", "np"):
+            def member():
+                return core.make_member(
+                    "solo", gpu_pools=((0, 64),), policy=policy,
+                    strategy=strategy, device=device, score_backend=backend)
+            m = member()
+            base = core.Simulator(m.state, m.qsch, m.sim_config).run(
+                clone_jobs(core, jobs))
+            fed = core.FederatedSimulator(core.FederatedCluster(
+                [member()])).run(clone_jobs(core, jobs))
+            solo = fed.members[0]
+            tag = f"federation parity {policy.name} x {strategy.name}"
+            check(placement_fingerprint(base.jobs)
+                  == placement_fingerprint(solo.jobs),
+                  f"{tag} ({backend}): placements differ")
+            check(sample_series(base.metrics) == sample_series(solo.metrics),
+                  f"{tag} ({backend}): sample series differ")
+            check(base.metrics.report() == solo.metrics.report(),
+                  f"{tag} ({backend}): reports differ")
+            outs[backend] = fed_outcome(fed)
+        held_equal(f"federation parity {policy.name} x {strategy.name}",
+                   outs["kernel"], outs["np"])
+    parity_s = time.perf_counter() - t0
+
+    # Spillover against static partitioning, hetero_members(1).
+    t0 = time.perf_counter()
+    jobs = skewed_workload(core)
+    horizon = 10 * 3600.0
+    spill_runs = {}
+    for backend in ("kernel", "np"):
+        for spillover in (False, True):
+            fed = hetero_members(core, 1, backend, device)
+            cfg = core.GSCHConfig(
+                select=(core.federation.QuotaFitSelect(),
+                        static_partition_select(core, np, fed)),
+                immediate_fit_bonus=0.0, spillover=spillover,
+                spill_deadline_s=600.0, forward_delay_s=60.0,
+                locality_penalty_s=240.0)
+            spill_runs[backend, spillover] = core.FederatedSimulator(
+                fed, cfg, horizon=horizon).run(clone_jobs(core, jobs))
+    for spillover in (False, True):
+        held_equal(f"federation spillover={spillover}",
+                   fed_outcome(spill_runs["kernel", spillover]),
+                   fed_outcome(spill_runs["np", spillover]))
+    static, spill = spill_runs["kernel", False], spill_runs["kernel", True]
+    T = max(j.start_time for res in (static, spill) for j in res.jobs
+            if j.start_time is not None)
+    capacity = sum(m.state.total_allocatable()
+                   for m in hetero_members(core, 1, "np", device).members)
+    stats = {}
+    for tag, res in (("static", static), ("spillover", spill)):
+        stats[tag] = {
+            "p90_jwtd_s": core.federation.waiting_percentile(res.jobs, 90.0),
+            "mean_gar_loaded": core.federation.allocated_gar(
+                res.jobs, capacity, T, default_end=horizon),
+            "sor": res.metrics.sor(),
+            "balance_loaded": res.metrics.balance_index(T)}
+    check(spill.spills > 0, "the spillover scenario never spilled")
+    check(stats["spillover"]["p90_jwtd_s"] < stats["static"]["p90_jwtd_s"],
+          f"spillover does not beat static on P90 JWTD: {stats}")
+    check(stats["spillover"]["mean_gar_loaded"]
+          >= 0.995 * stats["static"]["mean_gar_loaded"],
+          f"spillover loses loaded-window GAR: {stats}")
+    check(stats["spillover"]["balance_loaded"]
+          >= stats["static"]["balance_loaded"],
+          f"spillover does not improve balance: {stats}")
+    spill_s = time.perf_counter() - t0
+
+    # The acceptance scale: hetero_members(250), saturating big gangs.
+    scale, horizon = FED_SCALE, FED_HORIZON_S
+    jobs = saturating_workload(core, np, scale, horizon)
+
+    def partition(fed):
+        sel = static_partition_select(core, np, fed)
+        summary = core.federation.summarize(fed.members, 0.0)
+        parts = [[] for _ in fed.members]
+        for j in jobs:
+            parts[sel.assign(j, summary)].append(j)
+        return parts
+
+    def standalone(backend):
+        fed = hetero_members(core, scale, backend, device)
+        meter = MemberMeter(fed, node_score, seams)
+        wall, cycles, outs = 0.0, 0, []
+        for m, part in zip(fed.members, partition(fed)):
+            m.sim_config = dataclasses.replace(m.sim_config, horizon=horizon)
+            sim = core.Simulator(m.state, m.qsch, m.sim_config)
+            part = clone_jobs(core, part)
+            t = time.perf_counter()
+            res = sim.run(part)
+            wall += time.perf_counter() - t
+            cycles += res.cycles
+            outs.append(run_outcome(res))
+        return wall, cycles, outs, meter
+
+    def federated(backend):
+        fed = hetero_members(core, scale, backend, device)
+        meter = MemberMeter(fed, node_score, seams)
+        cfg = core.GSCHConfig(
+            select=(core.federation.QuotaFitSelect(),
+                    static_partition_select(core, np, fed)),
+            immediate_fit_bonus=0.0, summary_max_age_s=120.0,
+            spill_deadline_s=horizon * 10)
+        sim = core.FederatedSimulator(fed, cfg, horizon=horizon)
+        batch = clone_jobs(core, jobs)
+        t = time.perf_counter()
+        res = sim.run(batch)
+        wall = time.perf_counter() - t
+        for m in fed.members:
+            m.state.check_invariants()
+        return wall, res.cycles, fed_outcome(res), meter
+
+    accept = {}
+    with CallRecorder(rsch_mod, "compute_node_scores_and_slots") as seam, \
+            CallRecorder(rsch_mod, "compute_node_scores") as seam1:
+        seams = (seam, seam1)
+        for backend in ("kernel", "np"):
+            accept[backend] = {"standalone": standalone(backend),
+                               "federated": federated(backend)}
+    launches = node_score_launches(node_score)
+    for arm in ("standalone", "federated"):
+        got, want = accept["kernel"][arm][2], accept["np"][arm][2]
+        if arm == "standalone":
+            for i, (g, w) in enumerate(zip(got, want)):
+                held_equal(f"federation acceptance, standalone member {i}",
+                           g, w)
+        else:
+            held_equal("federation acceptance, federated", got, want)
+    check(launches["node_scores_slots"] > 0,
+          f"federation phase never launched the score+slots kernel: "
+          f"{launches}")
+    arms = {}
+    for backend in ("kernel", "np"):
+        sa_wall, sa_cycles = accept[backend]["standalone"][:2]
+        fed_wall, fed_cycles = accept[backend]["federated"][:2]
+        sa_ms = sa_wall / max(1, sa_cycles) * 1e3
+        fed_ms = fed_wall / max(1, fed_cycles) * 1e3
+        arms["cuda" if backend == "kernel" else "host_numpy"] = {
+            "standalone_cycles": sa_cycles, "federated_cycles": fed_cycles,
+            "standalone_ms_per_cycle": sa_ms,
+            "federated_ms_per_cycle": fed_ms, "ratio": fed_ms / sa_ms,
+            "standalone_wall_s": sa_wall, "federated_wall_s": fed_wall}
+    card = accept["kernel"]
+    n_nodes = card["federated"][3].nodes
+    fed_res = card["federated"][2]
+    out = {"phase": "federation",
+           "parity_configs": len(policy_strategy_matrix(core)),
+           "parity_wall_s": parity_s,
+           "spillover": {**stats, "spills": spill.spills,
+                         "cross_region": spill.routing.cross_region_forwards,
+                         "window_h": T / 3600.0, "wall_s": spill_s},
+           "acceptance": {"nodes_per_member": n_nodes, "scale": scale,
+                          "horizon_s": horizon, "jobs": len(jobs),
+                          "routing": fed_res["routing"], **arms,
+                          "members_standalone":
+                              card["standalone"][3].as_dict(),
+                          "members_federated":
+                              card["federated"][3].as_dict()},
+           "launches": launches, "phase_wall_s": time.perf_counter() - t_phase,
+           "identical_to_numpy": True}
+    emit(out)
+    return out
+
+
+# -- 6g. tuning --------------------------------------------------------------
+def contended_tuning_trace(core, np, n_gpus: int) -> list:
+    """``benchmarks/tuning_bench.py::contended_trace``: a PRIO_LOW burst
+    of ~2.4x cluster capacity under a stream of small PRIO_NORMAL jobs."""
+    rng = np.random.default_rng(BENCH_SEED)
+    window = 4.0 * 3600.0
+    jobs = []
+    n_norm = round(0.55 * n_gpus * window / (4.9 * 2400.0))
+    arrivals = np.cumsum(rng.exponential(window / n_norm, size=n_norm))
+    for i in range(n_norm):
+        gpus = int(rng.choice([1, 2, 4, 8, 16], p=[.2, .25, .25, .2, .1]))
+        n_pods, per_pod = (1, gpus) if gpus <= 8 else (gpus // 8, 8)
+        jobs.append(core.Job(uid=i, tenant="t0", gpu_type=0, n_pods=n_pods,
+                             gpus_per_pod=per_pod, priority=core.PRIO_NORMAL,
+                             submit_time=float(arrivals[i]),
+                             duration=max(300.0, float(
+                                 rng.exponential(2400.0)))))
+    for k in range(round(2.4 * n_gpus / 11.2)):
+        gpus = int(rng.choice([8, 16], p=[.6, .4]))
+        jobs.append(core.Job(uid=50_000 + k, tenant="t0", gpu_type=0,
+                             n_pods=gpus // 8, gpus_per_pod=8,
+                             kind=core.JobKind.TRAIN, priority=core.PRIO_LOW,
+                             submit_time=float(rng.uniform(0.0, 600.0)),
+                             duration=max(300.0, float(
+                                 rng.exponential(2400.0)))))
+    return jobs
+
+
+def frontier_metrics(core, res) -> dict:
+    rep = res.metrics.report()
+    return {"gar": float(rep["median_gar"]), "gfr": float(rep["mean_gfr"]),
+            "p90_wait": float(core.waiting_percentile(res.jobs, 90.0)),
+            "p99_wait": float(core.waiting_percentile(res.jobs, 99.0)),
+            "goodput": float(rep["goodput_gpu_seconds"])}
+
+
+def compare_arm(tuned: dict, static: dict) -> tuple:
+    """(wins, regressions) of the tuned arm against one static arm, with
+    the reference bench's senses and tolerances."""
+    wins, regressions = [], []
+    for name, sense in TUNING_METRIC_SENSE.items():
+        rel, slack = TUNING_METRIC_TOL[name]
+        margin = abs(static[name]) * rel + slack
+        gain = sense * (tuned[name] - static[name])
+        if gain > margin:
+            wins.append(name)
+        elif gain < -margin:
+            regressions.append(name)
+    return wins, regressions
+
+
+def tuning_outcome(res, mgr) -> dict:
+    return {**run_outcome(res),
+            "changes": [dataclasses.astuple(c) for c in mgr.space.changes],
+            "history": list(mgr.history), "periods": mgr.periods}
+
+
+def run_tuning(core, np, node_score, rsch_mod, device=None) -> dict:
+    """Phase 6g: ``benchmarks/tuning_bench.py``'s identity, tuned-vs-static
+    and attached-overhead gates on the port, each on the card and with
+    the host numpy backend, plus a climb over every handle (score
+    weights included)."""
+    zero_launches(node_score)
+    t0 = t_phase = time.perf_counter()
+    # NoOp byte-identity across the policy x strategy matrix.
+    jobs = parity_trace(core, 160)
+    handles = 0
+    for policy, strategy in policy_strategy_matrix(core):
+        outs = {}
+        for backend in ("kernel", "np"):
+            base, _ = bench_sim(core, jobs, backend, device,
+                                n_gpus=TUNING_IDENTITY_GPUS, policy=policy,
+                                strategy=strategy)
+            noop = core.NoOpController()
+            mgr = core.TuningManager([noop],
+                                     control_period_s=TUNING_PERIOD_S)
+            inst, _ = bench_sim(core, jobs, backend, device,
+                                n_gpus=TUNING_IDENTITY_GPUS, policy=policy,
+                                strategy=strategy, manager=mgr)
+            tag = f"tuning identity {policy.name} x {strategy.name}"
+            check(run_outcome(base) == run_outcome(inst),
+                  f"{tag} ({backend}): the no-op manager perturbed the run")
+            check(noop.ticks_seen > 0 and noop.windows_seen > 0,
+                  f"{tag} ({backend}): the manager never drove the "
+                  f"controller")
+            check(not mgr.space.changes, f"{tag} ({backend}): changes")
+            handles = len(mgr.space)
+            check(handles >= 15, f"{tag}: only {handles} handles")
+            outs[backend] = tuning_outcome(inst, mgr)
+        held_equal(f"tuning identity {policy.name} x {strategy.name}",
+                   outs["kernel"], outs["np"])
+    identity_s = time.perf_counter() - t0
+
+    # Tuned against the static Table-1 profiles at 1,024 GPUs.
+    t0 = time.perf_counter()
+    n_gpus = TUNING_GPUS
+    jobs = contended_tuning_trace(core, np, n_gpus)
+    statics = {f"static:{name}": core.Strategy[name]
+               for name in TUNING_STATIC}
+    arms, tuned_runs = {}, {}
+    for backend in ("kernel", "np"):
+        for tag, strategy in statics.items():
+            res, _ = bench_sim(core, jobs, backend, device, n_gpus=n_gpus,
+                               strategy=strategy, preempt=False)
+            arms[backend, tag] = res
+        mgr = core.TuningManager(
+            [core.StarvationEscalator(wait_threshold_s=900.0, boost=30,
+                                      escalation_period_s=450.0),
+             core.HillClimbController(seed=BENCH_SEED, params=["qsch."],
+                                      hysteresis=0.02)],
+            control_period_s=TUNING_PERIOD_S)
+        res, _ = bench_sim(core, jobs, backend, device, n_gpus=n_gpus,
+                           manager=mgr, preempt=False)
+        tuned_runs[backend] = (res, mgr)
+    for tag in statics:
+        held_equal(f"tuning {tag}", run_outcome(arms["kernel", tag]),
+                   run_outcome(arms["np", tag]))
+    held_equal("tuning tuned arm", tuning_outcome(*tuned_runs["kernel"]),
+               tuning_outcome(*tuned_runs["np"]))
+    res, mgr = tuned_runs["kernel"]
+    tuned = frontier_metrics(core, res)
+    escalator, climber = mgr.controllers
+    check(escalator.escalations > 0, "the escalator never escalated")
+    matchups = {}
+    for tag in statics:
+        static = frontier_metrics(core, arms["kernel", tag])
+        wins, regressions = compare_arm(tuned, static)
+        matchups[tag] = {"wins": wins, "regressions": regressions,
+                         "static": static}
+        check(wins, f"tuned arm beat {tag} on no frontier metric: "
+                    f"{tuned} against {static}")
+        check(not regressions, f"tuned arm regressed {regressions} against "
+                               f"{tag}: {tuned} against {static}")
+    tuned_s = time.perf_counter() - t0
+
+    # The climb over every handle: score weights move mid-run.
+    t0 = time.perf_counter()
+    every = {}
+    for backend in ("kernel", "np"):
+        mgr = core.TuningManager(
+            [core.StarvationEscalator(wait_threshold_s=900.0, boost=30,
+                                      escalation_period_s=450.0),
+             core.HillClimbController(seed=TUNING_CLIMB_SEED, params=None,
+                                      hysteresis=0.02)],
+            control_period_s=TUNING_PERIOD_S)
+        first = {}
+        emit_change = mgr.space.on_change
+
+        def on_change(ch, _first=first, _emit=emit_change):
+            if "launches" not in _first and ch.param.endswith(WEIGHT_FIELDS):
+                _first.update(param=ch.param, t=ch.t,
+                              launches=sum(node_score_launches(
+                                  node_score).values()))
+            _emit(ch)
+        mgr.space.on_change = on_change
+        seam_weights, seam = set(), rsch_mod.compute_node_scores_and_slots
+
+        def record(*args, _seam=seam, _seen=seam_weights, **kw):
+            _seen.add(args[7])          # the weights this pass launches with
+            return _seam(*args, **kw)
+        rsch_mod.compute_node_scores_and_slots = record
+        try:
+            res, wall = bench_sim(core, jobs, backend, device, n_gpus=n_gpus,
+                                  manager=mgr, preempt=False)
+        finally:
+            rsch_mod.compute_node_scores_and_slots = seam
+        after = sum(node_score_launches(node_score).values()) \
+            - first.get("launches", 0)
+        every[backend] = (res, mgr, first, after, wall, seam_weights)
+    held_equal("tuning all-handle run", tuning_outcome(*every["kernel"][:2]),
+               tuning_outcome(*every["np"][:2]))
+    res, mgr, first, launches_after, wall_every, weights = every["kernel"]
+    weight_changes = [c for c in mgr.space.changes
+                      if c.param.endswith(WEIGHT_FIELDS)]
+    check(weight_changes, "the all-handle climb never moved a score weight")
+    check(launches_after > 0,
+          f"no kernel launch after the first weight change {first}")
+    check(len(weights) > 1, f"the kernel was launched with one weight set "
+                            f"only: {weights}")
+    every_s = time.perf_counter() - t0
+
+    # Attached overhead at 10k nodes: one stack, arms in turns.
+    overhead = {}
+    for backend in ("kernel", "np"):
+        overhead[backend] = tuning_overhead(core, np, backend, device)
+    check(overhead["kernel"]["picks"] == overhead["np"]["picks"],
+          "the overhead gang's placements differ between card and numpy")
+    launches = node_score_launches(node_score)
+    check(launches["node_scores_slots"] > 0,
+          f"tuning phase never launched the score+slots kernel: {launches}")
+    out = {"phase": "tuning", "handles": handles,
+           "identity_configs": len(policy_strategy_matrix(core)),
+           "identity_wall_s": identity_s,
+           "tuned_vs_static": {
+               "n_gpus": n_gpus, "tuned": tuned, "matchups": matchups,
+               "escalations": escalator.escalations,
+               "probes": climber.moves, "accepts": climber.accepts,
+               "reverts": climber.reverts, "periods": mgr.periods,
+               "wall_s": tuned_s},
+           "all_handles": {
+               "changes": len(mgr.space.changes),
+               "weight_changes": len(weight_changes),
+               "first_weight_change": {k: v for k, v in first.items()
+                                       if k != "launches"},
+               "launches_after_first_weight_change": launches_after,
+               "weight_sets_launched": len(weights),
+               "probes": mgr.controllers[1].moves,
+               "reverts": mgr.controllers[1].reverts,
+               "wall_s_cuda": wall_every,
+               "wall_s_host_numpy": every["np"][4], "wall_s": every_s},
+           "overhead_10k": {
+               "cuda": {k: v for k, v in overhead["kernel"].items()
+                        if k != "picks"},
+               "host_numpy": {k: v for k, v in overhead["np"].items()
+                              if k != "picks"}},
+           "launches": launches, "phase_wall_s": time.perf_counter() - t_phase,
+           "identical_to_numpy": True}
+    emit(out)
+    return out
+
+
+def tuning_overhead(core, np, backend: str, device) -> dict:
+    """``tuning_bench.py::overhead_gate`` on ``backend``: a 64-pod gang
+    cycle on a fragmented 10k-node cluster, detached and attached (a
+    no-op controller and an escalator that never fires) in turns on one
+    stack; median ms of each arm and of the paired deltas."""
+    state = fragmented_state(core, np, TUNING_OVERHEAD_NODES, BENCH_SEED)
+    qsch = core.QSCH(
+        core.QuotaManager({"t0": {0: 10 ** 9}}),
+        core.RSCH(state.topology, core.RSCHConfig(
+            train_strategy=core.Strategy.E_BINPACK, device=device,
+            score_backend=backend)),
+        core.QSCHConfig(policy=core.QueuePolicy.STRICT_FIFO))
+    sim = core.Simulator(state, qsch, core.SimConfig(tick_interval=30.0))
+    mgr = core.TuningManager(
+        [core.NoOpController(), core.StarvationEscalator(
+            wait_threshold_s=1e15)], control_period_s=TUNING_PERIOD_S)
+    mgr.attach(sim)
+
+    def cycle(now, attached, seq):
+        qsch.submit(core.Job(uid=1, tenant="t0", gpu_type=0,
+                             n_pods=GANG_PODS, gpus_per_pod=GPUS_PER_POD,
+                             kind=core.JobKind.TRAIN))
+        t = time.perf_counter()
+        result = qsch.cycle(state, now)
+        if attached:
+            mgr._on_tick(core.Event(t=now, kind=core.EventKind.TICK,
+                                    seq=seq))
+        dt = time.perf_counter() - t
+        check(len(result.scheduled) == 1, "the overhead gang must bind")
+        bound = result.scheduled[0]
+        picks = tuple((p.node, tuple(p.gpu_indices))
+                      for p in bound.placement.pods)
+        state.release(bound.uid)
+        qsch.running.clear()
+        qsch.quota.refund(bound)
+        return dt, picks
+
+    cycle(0.0, False, 0)
+    cycle(0.0, True, 0)
+    det, att = [], []
+    for i in range(TUNING_OVERHEAD_REPEATS * 2):
+        now = 30.0 * (i + 1)
+        dt, p_det = cycle(now, False, i)
+        det.append(dt)
+        dt, p_att = cycle(now, True, i)
+        att.append(dt)
+        check(p_det == p_att, "the attached arm placed differently")
+    check(not mgr.space.changes, "the overhead arms changed a parameter")
+    d = float(np.median(det))
+    a = d + float(np.median(np.subtract(att, det)))
+    return {"nodes": TUNING_OVERHEAD_NODES, "gang_pods": GANG_PODS,
+            "cycles_per_arm": len(det), "detached_ms": d * 1e3,
+            "attached_ms": a * 1e3, "overhead": a / d - 1.0,
+            "handles": len(mgr.space), "picks": p_det}
+
+
 def fabric_pool(serve, router: str, specs, trace):
     """``specs`` behind ``router``, ``trace`` routed through it."""
     pool = serve.ReplicaPool(specs, getattr(serve, router)())
@@ -1953,6 +2841,11 @@ def main() -> int:
     # -- 6d. pipeline: the §5.1 replay with cycle pipelining -----------
     pipe = run_pipeline(node_score, rsch_mod, run_51, res_gpu)
 
+    # -- 6e-6g. elastic training, federation, self-tuning --------------
+    elastic = run_elastic(core, np, node_score)
+    federation = run_federation(core, np, node_score, rsch_mod)
+    tuning = run_tuning(core, np, node_score, rsch_mod)
+
     # -- 7. wkv-sweep: the WKV kernel against its plain version ---------
     f32, bf16 = torch.float32, torch.bfloat16
     wkv_types = {"f32": (f32,) * 4, "bf16": (bf16,) * 4,
@@ -2234,6 +3127,9 @@ def main() -> int:
          "launches_tidal": tidal["launches"]["node_scores_slots"],
          "launches_pipeline": pipe["launches"]["node_scores_slots"],
          "launches_fabric_demand": fabric["demand"]["launches"],
+         "launches_elastic": elastic["launches"]["node_scores_slots"],
+         "launches_federation": federation["launches"]["node_scores_slots"],
+         "launches_tuning": tuning["launches"]["node_scores_slots"],
          "mismatches": stats["slots"]["mismatches"],
          "max_abs_err": stats["slots"]["max_abs_err"],
          "ms": full["kernel_ms"], "plain_ms": full["plain_ms"],
@@ -2248,6 +3144,9 @@ def main() -> int:
          "launches_path": "per-pod gang cycle, 10k nodes",
          "launches_tidal": tidal["launches"]["node_scores"],
          "launches_pipeline": pipe["launches"]["node_scores"],
+         "launches_elastic": elastic["launches"]["node_scores"],
+         "launches_federation": federation["launches"]["node_scores"],
+         "launches_tuning": tuning["launches"]["node_scores"],
          "mismatches": stats["score"]["mismatches"],
          "max_abs_err": stats["score"]["max_abs_err"],
          "ms": k_score, "plain_ms": p_score, "bound_ms": b_score,

@@ -63,7 +63,7 @@ def spread_profiles(M, plugin):
 # ----------------------------------------------------------------------
 # Registry
 # ----------------------------------------------------------------------
-UNPORTED = ("core.elastic", "core.federation", "core.tuning", "obs")
+UNPORTED = ("obs",)
 
 
 def shipped(registry, package):

@@ -613,3 +613,93 @@ def test_build_engine_on_the_card_matches_the_host(cuda):
                                          max_new=4))
         runs.append({r.uid: r.generated for r in eng.run_until_drained()})
     assert runs[0] == runs[1] and len(runs[0]) == 5
+
+
+# -- Federation and self-tuning ----------------------------------------------
+def _federation_run(backend, device=None):
+    """Two members of different widths (8 and 4 GPUs a node, one and two
+    GPU-type pools) under a load that spills: routing, placements and
+    each member's report on ``backend``."""
+    import dataclasses
+
+    import repro_torch.core as T
+    regions = {"tA": "r0", "tB": "r1"}
+    kw = dict(tenants=tuple(regions), device=device, score_backend=backend)
+    fed = T.FederatedCluster([
+        T.make_member("wide", region="r0", gpu_pools=((0, 24),), **kw),
+        T.make_member("narrow", region="r1", gpu_pools=((0, 8), (1, 12)),
+                      gpus_per_node=4, **kw)])
+    jobs = [j for j in T.training_trace(
+        150, seed=3, arrival_rate_per_hour=500, mean_duration_s=3000.0,
+        tenants=tuple(regions), tenant_regions=regions, gpu_types=(0, 1),
+        type_probs=(0.7, 0.3)) if j.n_gpus <= 32]
+    cfg = T.GSCHConfig(
+        select=(T.federation.QuotaFitSelect(),
+                T.federation.LocalityAffinitySelect(weight=100.0)),
+        immediate_fit_bonus=0.0, spill_deadline_s=600.0,
+        forward_delay_s=60.0)
+    res = T.FederatedSimulator(fed, cfg, horizon=8 * 3600.0).run(jobs)
+    for m in fed.members:
+        m.state.check_invariants()
+    return ([(j.uid, j.start_time, None if j.placement is None else
+              [(p.node, p.gpu_indices) for p in j.placement.pods])
+             for j in res.jobs], dataclasses.astuple(res.routing),
+            [m.metrics.report() for m in res.members])
+
+
+def test_federation_on_the_card_matches_host_numpy(cuda):
+    """Two members of different widths score on one card (one staging,
+    two widths interleaved): every route, spill, placement and member
+    report equals the host numpy backend's, and the kernel launched."""
+    before = node_score.node_scores_slots.launches
+    card = _federation_run("kernel")
+    launches = node_score.node_scores_slots.launches - before
+    assert card == _federation_run("np")
+    assert launches > 0
+    assert card[1][1] > 0, "the scenario must spill"
+
+
+def _tuned_run(backend, device=None):
+    """A hill climb over every handle (score weights included) with the
+    escalator, on ``backend``: placements, report and param-change log."""
+    import dataclasses
+
+    import repro_torch.core as T
+    topo = T.small_topology(n_nodes=16, gpus_per_node=8, nodes_per_leaf=4)
+    state = T.ClusterState.create(topo)
+    qsch = T.QSCH(T.QuotaManager({"t0": {0: 1024}}),
+                  T.RSCH(topo, T.RSCHConfig(score_backend=backend,
+                                            device=device)),
+                  T.QSCHConfig(policy=T.QueuePolicy.BACKFILL))
+    sim = T.Simulator(state, qsch, T.SimConfig())
+    mgr = T.TuningManager([T.HillClimbController(seed=3, epsilon=0.5),
+                           T.StarvationEscalator(wait_threshold_s=600.0)],
+                          control_period_s=900.0)
+    mgr.attach(sim)
+    jobs = [j for j in T.training_trace(90, seed=4, arrival_rate_per_hour=400,
+                                        mean_duration_s=1200.0)
+            if j.n_gpus <= 64]
+    res = sim.run(jobs)
+    return ([(j.uid, j.start_time, None if j.placement is None else
+              [(p.node, p.gpu_indices) for p in j.placement.pods])
+             for j in res.jobs], res.metrics.report(),
+            [dataclasses.astuple(c) for c in mgr.space.changes])
+
+
+def test_weight_change_reaches_the_launched_kernel(cuda, monkeypatch):
+    """Score-weight handles move mid-run: the card's run decides and logs
+    what numpy's does, and the kernel is launched with the new weights."""
+    launched = []
+    orig = node_score._launch
+
+    def launch(fn, cols, outs, n, request, g, weights):
+        launched.append(tuple(weights))
+        return orig(fn, cols, outs, n, request, g, weights)
+
+    monkeypatch.setattr(node_score, "_launch", launch)
+    card = _tuned_run("kernel")
+    assert card == _tuned_run("np")
+    moved = [c for c in card[2] if c[0].startswith("train-")
+             and c[0].endswith((".used", ".fit", ".group", ".topo"))]
+    assert moved, "the climb never moved a training score weight"
+    assert len(set(launched)) > 1

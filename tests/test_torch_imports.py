@@ -37,6 +37,19 @@ COSCHED = ("repro_torch.core.dynamics", "repro_torch.core.dynamics.engine",
            "repro_torch.serve.router", "repro_torch.serve.requests",
            "repro_torch.serve.replica")
 
+#: Modules of the elastic, federation and self-tuning slice.
+ELASTIC_FEDERATION_TUNING = (
+    "repro_torch.launch.combo_cache", "repro_torch.core.elastic",
+    "repro_torch.core.elastic.spec", "repro_torch.core.elastic.estimate",
+    "repro_torch.core.elastic.policy", "repro_torch.core.elastic.manager",
+    "repro_torch.core.federation", "repro_torch.core.federation.summary",
+    "repro_torch.core.federation.member",
+    "repro_torch.core.federation.plugins",
+    "repro_torch.core.federation.gsch", "repro_torch.core.federation.metrics",
+    "repro_torch.core.federation.simulator", "repro_torch.core.tuning",
+    "repro_torch.core.tuning.params", "repro_torch.core.tuning.profile",
+    "repro_torch.core.tuning.manager", "repro_torch.core.tuning.controllers")
+
 
 def _env():
     env = dict(os.environ)
@@ -51,6 +64,7 @@ def test_every_module_imports_with_jax_blocked():
     count, names = out.stdout.splitlines()[:2]
     assert int(count.split()[0]) >= 20
     assert set(COSCHED) <= set(names.split())
+    assert set(ELASTIC_FEDERATION_TUNING) <= set(names.split())
 
 
 def _imports(path):
