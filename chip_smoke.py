@@ -2,7 +2,8 @@
 """Chip smoke for the PyTorch/CUDA port (``src/repro_torch``).
 
 Drives the port's main paths on one CUDA card — the scheduling cycle
-(with cluster dynamics, tidal autoscaling and cycle pipelining), the
+(with cluster dynamics, tidal autoscaling, cycle pipelining, elastic
+training, federation, self-tuning and the telemetry layer), the
 serving fabric, rwkv6-3b, glm4-9b, mixtral-8x7b (8 of 32 layers), hymba-1.5b,
 seamless-m4t-large-v2 and llava-next-34b (16 of 60 layers) serving, and
 rwkv6-3b training — and holds every kernel of those paths against its
@@ -82,6 +83,23 @@ Phases, each printed as one JSON line on stdout:
              score weights change mid-run and the kernel is launched with
              them (its param-change log equal to numpy's); the attached
              per-cycle ms at 10k nodes (not gated);
+6h. obs — ``benchmarks/obs_bench.py``'s gates rebuilt from
+             ``repro_torch.obs`` at full size, seed 0.  Attached with the
+             audit on, RSCH's Level-2 pass scores the whole node table.
+             Identity: six policy x strategy pairs, 160 jobs on 512 GPUs,
+             attached on the card = detached on the card = attached with
+             numpy (placements, reports, samples, audited decisions);
+             overhead: a 64-pod gang a cycle at 10k fragmented nodes,
+             detached and attached in turns, 30 repeats, picks equal,
+             2·30+1 binds audited, the overhead beside the 5% budget (not
+             gated), and the gang once on the per-pod path; trace: 80
+             rigid jobs and 10 elastic 128-GPU gangs over 18 h under node
+             failures, one job span per SUBMIT, an E at every END, an
+             instant per failure and reshape, lanes balanced, the card's
+             stream idle whenever a ``score`` span closes; then the §5.1
+             replay attached (full-width launches, seam µs a call, walls,
+             decisions, each breakdown's terms within 1e-6 of the
+             kernel's fused total, bundle and trace bytes);
 7. wkv-sweep    — the chunked WKV kernel against its plain version at
              the reference's test shapes, at T ∈ {1, 37, 513}, at the
              serve shape, at the chunk's edges (T = 15, 16, 17) and under
@@ -299,13 +317,23 @@ TUNING_METRIC_SENSE = {"gar": +1, "gfr": -1, "p90_wait": -1, "p99_wait": -1,
 TUNING_METRIC_TOL = {"gar": (0.05, 0.02), "gfr": (0.05, 0.02),
                      "p90_wait": (0.10, 120.0), "p99_wait": (0.10, 120.0),
                      "goodput": (0.02, 0.0)}
-TUNING_OVERHEAD_NODES, TUNING_OVERHEAD_REPEATS = 10_000, 30
+# The attached-overhead gates of the tuning and obs benches: a 64-pod gang
+# a cycle on the fragmented 10k-node state, arms in turns, 30 repeats.
+OVERHEAD_NODES, OVERHEAD_REPEATS = 10_000, 30
 # The all-handle climb's seed: its arms are ~40 (handle, direction) pairs,
 # and seeds 0 and 1 probe only inference and best-effort weights, which a
 # training trace never scores with; seed 3 probes training weights from
 # the first control period on.
 TUNING_CLIMB_SEED = 3
 WEIGHT_FIELDS = (".used", ".fit", ".group", ".topo")
+# benchmarks/obs_bench.py at its full size: the identity trace and
+# cluster, the trace gate's elastic run.
+OBS_IDENTITY_JOBS, OBS_IDENTITY_GPUS = 160, 512
+OBS_BUDGET = 0.05               # the reference's attached-overhead budget
+OBS_TRACE_WORKLOAD = dict(n_rigid=80, n_elastic=10, window=8 * 3600.0,
+                          model="obs-train")
+OBS_TRACE_HORIZON_S = 18 * 3600.0
+OBS_BREAKDOWN_TOL = 1e-6        # tests/test_obs.py's rel_tol
 # The serving fabric: a pool of these FULL-config replicas, 4 slots each,
 # behind each built-in router; the first FABRIC_SERVED requests the
 # round-robin router sent to each replica served on the card.
@@ -1544,9 +1572,11 @@ def sample_series(metrics) -> list:
 
 def bench_sim(core, jobs, backend: str, device, *, n_gpus: int,
               policy=None, strategy=None, horizon=None, dynamics=None,
-              elastic=None, manager=None, preempt: bool = True):
-    """The reference's elastic and tuning benches' ``run_sim`` on the
-    port, with the score pass on ``backend``: returns (result, wall s)."""
+              elastic=None, manager=None, preempt: bool = True,
+              telemetry=None):
+    """The reference's elastic, tuning and obs benches' ``run_sim`` on
+    the port, with the score pass on ``backend``: returns (result, wall
+    s)."""
     topo = bench_topology(core, n_gpus)
     state = core.ClusterState.create(topo)
     rsch = core.RSCH(topo, core.RSCHConfig(
@@ -1562,6 +1592,8 @@ def bench_sim(core, jobs, backend: str, device, *, n_gpus: int,
         horizon=horizon, dynamics=dynamics))
     if manager is not None:
         manager.attach(sim)
+    if telemetry is not None:
+        telemetry.attach(sim)
     t = time.perf_counter()
     res = sim.run(clone_jobs(core, jobs))
     wall = time.perf_counter() - t
@@ -1600,23 +1632,25 @@ def parity_trace(core, n: int) -> list:
 
 
 # -- 6e. elastic -------------------------------------------------------------
-def contended_elastic(core, np) -> list:
+def contended_elastic(core, np, n_rigid: int = 100, n_elastic: int = 14,
+                      window: float = 10.0 * 3600.0,
+                      model: str = "bench-train") -> list:
     """``benchmarks/elastic_bench.py::_contended_workload`` (full size):
     100 small rigid jobs fragment the cluster while 14 elastic 128-GPU
-    gangs (shrinkable to 64 and 32) arrive on top."""
+    gangs (shrinkable to 64 and 32) arrive on top.  With 80, 10, 8 h and
+    ``"obs-train"`` it is ``obs_bench.py::_dynamic_workload``."""
     rng = np.random.default_rng(BENCH_SEED)
     jobs = []
-    window = 10.0 * 3600.0
-    for i in range(100):
+    for i in range(n_rigid):
         n_gpus = int(rng.choice([8, 16, 32], p=[.45, .35, .2]))
         jobs.append(core.Job(
             uid=i, tenant="t0", gpu_type=0, n_pods=n_gpus // 8,
             gpus_per_pod=8, submit_time=float(rng.uniform(0.0, window)),
             duration=float(rng.uniform(1.0, 2.5)) * 3600.0))
     spec = core.spec_from_artifacts(core.scaling_artifacts(
-        "bench-train", "large", [32, 64, 128], alpha=0.85))
+        model, "large", [32, 64, 128], alpha=0.85))
     ideal = spec.ideal()
-    for k in range(14):
+    for k in range(n_elastic):
         jobs.append(core.Job(
             uid=10_000 + k, tenant="t0", gpu_type=0, n_pods=ideal.n_pods,
             gpus_per_pod=ideal.gpus_per_pod,
@@ -2282,55 +2316,372 @@ def tuning_overhead(core, np, backend: str, device) -> dict:
     cycle on a fragmented 10k-node cluster, detached and attached (a
     no-op controller and an escalator that never fires) in turns on one
     stack; median ms of each arm and of the paired deltas."""
-    state = fragmented_state(core, np, TUNING_OVERHEAD_NODES, BENCH_SEED)
-    qsch = core.QSCH(
-        core.QuotaManager({"t0": {0: 10 ** 9}}),
-        core.RSCH(state.topology, core.RSCHConfig(
-            train_strategy=core.Strategy.E_BINPACK, device=device,
-            score_backend=backend)),
-        core.QSCHConfig(policy=core.QueuePolicy.STRICT_FIFO))
+    state, qsch = overhead_stack(core, np, backend, device)
     sim = core.Simulator(state, qsch, core.SimConfig(tick_interval=30.0))
     mgr = core.TuningManager(
         [core.NoOpController(), core.StarvationEscalator(
             wait_threshold_s=1e15)], control_period_s=TUNING_PERIOD_S)
     mgr.attach(sim)
 
-    def cycle(now, attached, seq):
-        qsch.submit(core.Job(uid=1, tenant="t0", gpu_type=0,
-                             n_pods=GANG_PODS, gpus_per_pod=GPUS_PER_POD,
-                             kind=core.JobKind.TRAIN))
-        t = time.perf_counter()
-        result = qsch.cycle(state, now)
-        if attached:
-            mgr._on_tick(core.Event(t=now, kind=core.EventKind.TICK,
-                                    seq=seq))
-        dt = time.perf_counter() - t
-        check(len(result.scheduled) == 1, "the overhead gang must bind")
-        bound = result.scheduled[0]
-        picks = tuple((p.node, tuple(p.gpu_indices))
-                      for p in bound.placement.pods)
-        state.release(bound.uid)
-        qsch.running.clear()
-        qsch.quota.refund(bound)
-        return dt, picks
-
-    cycle(0.0, False, 0)
-    cycle(0.0, True, 0)
+    def tick(now, seq):
+        return lambda: mgr._on_tick(core.Event(t=now, kind=core.EventKind.TICK,
+                                               seq=seq))
+    gang_cycle(core, state, qsch, 0.0)
+    gang_cycle(core, state, qsch, 0.0, after=tick(0.0, 0))
     det, att = [], []
-    for i in range(TUNING_OVERHEAD_REPEATS * 2):
+    for i in range(OVERHEAD_REPEATS * 2):
         now = 30.0 * (i + 1)
-        dt, p_det = cycle(now, False, i)
+        dt, p_det = gang_cycle(core, state, qsch, now)
         det.append(dt)
-        dt, p_att = cycle(now, True, i)
+        dt, p_att = gang_cycle(core, state, qsch, now, after=tick(now, i))
         att.append(dt)
         check(p_det == p_att, "the attached arm placed differently")
     check(not mgr.space.changes, "the overhead arms changed a parameter")
     d = float(np.median(det))
     a = d + float(np.median(np.subtract(att, det)))
-    return {"nodes": TUNING_OVERHEAD_NODES, "gang_pods": GANG_PODS,
+    return {"nodes": OVERHEAD_NODES, "gang_pods": GANG_PODS,
             "cycles_per_arm": len(det), "detached_ms": d * 1e3,
             "attached_ms": a * 1e3, "overhead": a / d - 1.0,
             "handles": len(mgr.space), "picks": p_det}
+
+
+# -- 6h. obs -----------------------------------------------------------------
+def audited(tel) -> list:
+    """Every audited decision, lifted: filter stats, reasons, breakdowns."""
+    return [d.as_dict() for d in tel.audit.decisions]
+
+
+def breakdown_gap(tel) -> tuple:
+    """(the largest relative gap between a breakdown's summed terms and
+    the kernel's fused total, breakdowns seen) over the bound decisions;
+    a gap within 1e-9 counts as none (``tests/test_obs.py``'s abs_tol)."""
+    worst, n = 0.0, 0
+    for d in tel.audit.bound():
+        for pa in d.passes:
+            for b in pa.breakdown:
+                total = sum(b.terms.values())
+                gap = abs(total - b.total)
+                if gap > 1e-9:
+                    worst = max(worst, gap / max(abs(total), abs(b.total)))
+                n += 1
+    return worst, n
+
+
+def job_and_cluster_lanes(obs, tel) -> list:
+    """The trace's simulated-time events (the job and cluster lanes)."""
+    return [e for e in tel.tracer.to_json()["traceEvents"]
+            if e["pid"] != obs.PID_SCHED]
+
+
+def idle_at_score_close(tel, probe) -> list:
+    """Calls ``probe()`` whenever a ``score`` span closes; returns the
+    list its results land in."""
+    seen, done = [], tel._phase_done
+
+    def phase_done(scope, name, dt):
+        if name == "score":
+            seen.append(probe())
+        done(scope, name, dt)
+    tel._phase_done = phase_done
+    return seen
+
+
+def overhead_stack(core, np, backend: str, device, batched: bool = True):
+    """``obs_bench.py::_cycle_stack``: the production QSCH stack on the
+    fragmented 10k-node state, one 64-pod gang a cycle."""
+    state = fragmented_state(core, np, OVERHEAD_NODES, BENCH_SEED)
+    qsch = core.QSCH(
+        core.QuotaManager({"t0": {0: 10 ** 9}}),
+        core.RSCH(state.topology, core.RSCHConfig(
+            train_strategy=core.Strategy.E_BINPACK, device=device,
+            score_backend=backend, batched_gang=batched)),
+        core.QSCHConfig(policy=core.QueuePolicy.STRICT_FIFO))
+    return state, qsch
+
+
+def gang_cycle(core, state, qsch, now: float, obs=None, after=None
+               ) -> tuple:
+    """``obs_bench.py::_one_cycle`` with ``obs`` set on QSCH and RSCH,
+    ``after()`` (if given) timed with the cycle: the host seconds and
+    the picks; the cluster is reset after."""
+    qsch.obs = qsch.rsch.obs = obs
+    qsch.submit(core.Job(uid=1, tenant="t0", gpu_type=0, n_pods=GANG_PODS,
+                         gpus_per_pod=GPUS_PER_POD, kind=core.JobKind.TRAIN))
+    t = time.perf_counter()
+    result = qsch.cycle(state, now)
+    if after is not None:
+        after()
+    dt = time.perf_counter() - t
+    check(len(result.scheduled) == 1, "the overhead gang must bind")
+    bound = result.scheduled[0]
+    picks = tuple((p.node, tuple(p.gpu_indices))
+                  for p in bound.placement.pods)
+    state.release(bound.uid)
+    qsch.running.clear()
+    qsch.quota.refund(bound)
+    return dt, picks
+
+
+def obs_overhead(core, np, obs, backend: str, device) -> dict:
+    """``obs_bench.py::overhead_gate`` on ``backend``: detached and
+    attached in turns on one stack; median ms of the detached arm and of
+    the paired deltas.  Attached, RSCH scores the whole node table; a
+    third arm, attached with the audit pillar off, keeps subset scoring
+    and shows what the rest of the telemetry costs."""
+    state, qsch = overhead_stack(core, np, backend, device)
+    tel, lite = obs.Telemetry(), obs.Telemetry(audit=False)
+    tel.attach_qsch(qsch)
+    attached = qsch.obs
+    gang_cycle(core, state, qsch, 0.0)
+    gang_cycle(core, state, qsch, 0.0, attached)
+    gang_cycle(core, state, qsch, 0.0, lite)
+    det, att, att_lite = [], [], []
+    for i in range(OVERHEAD_REPEATS * 2):
+        now = 30.0 * (i + 1)
+        dt, p_det = gang_cycle(core, state, qsch, now)
+        det.append(dt)
+        dt, p_att = gang_cycle(core, state, qsch, now, attached)
+        att.append(dt)
+        dt, p_lite = gang_cycle(core, state, qsch, now, lite)
+        att_lite.append(dt)
+        check(p_det == p_att == p_lite, "an attached arm placed differently")
+    n_audited = len(tel.audit.bound())
+    check(n_audited == OVERHEAD_REPEATS * 2 + 1,
+          f"{n_audited} binds audited, not one per attached cycle")
+    d = float(np.median(det))
+    a = d + float(np.median(np.subtract(att, det)))
+    a_lite = d + float(np.median(np.subtract(att_lite, det)))
+    return {"nodes": OVERHEAD_NODES, "gang_pods": GANG_PODS,
+            "repeats": OVERHEAD_REPEATS, "cycles_per_arm": len(det),
+            "detached_ms": d * 1e3, "attached_ms": a * 1e3,
+            "overhead": a / d - 1.0, "budget": OBS_BUDGET,
+            "within_budget": a / d - 1.0 <= OBS_BUDGET,
+            "attached_no_audit_ms": a_lite * 1e3,
+            "overhead_no_audit": a_lite / d - 1.0,
+            "audited": n_audited, "picks": p_det,
+            "decision": audited(tel)[-1]}
+
+
+def obs_per_pod(core, np, obs, backend: str, device) -> tuple:
+    """The overhead gang once, attached, on the per-pod path
+    (``batched_gang=False``): its picks and audited decision."""
+    state, qsch = overhead_stack(core, np, backend, device, batched=False)
+    tel = obs.Telemetry()
+    tel.attach_qsch(qsch)
+    _, picks = gang_cycle(core, state, qsch, 0.0, qsch.obs)
+    return picks, audited(tel)
+
+
+def obs_trace_run(core, np, obs, backend: str, device, probe=None):
+    """``obs_bench.py::trace_gate``'s run, attached: (result, telemetry,
+    the probe's readings at every ``score`` close, wall s)."""
+    tel = obs.Telemetry()
+    idle = idle_at_score_close(tel, probe) if probe is not None else []
+    dynamics = core.DynamicsConfig(
+        plugins=[core.NodeFailureInjector(mtbf_s=4 * 3600.0,
+                                          repair_s=1200.0, shape=1.2)],
+        seed=BENCH_SEED,
+        recovery=core.CheckpointModel(interval_s=600.0,
+                                      restart_overhead_s=180.0))
+    jobs = contended_elastic(core, np, **OBS_TRACE_WORKLOAD)
+    res, wall = bench_sim(core, jobs, backend, device,
+                          n_gpus=OBS_IDENTITY_GPUS,
+                          horizon=OBS_TRACE_HORIZON_S, dynamics=dynamics,
+                          elastic=core.ElasticManager(), telemetry=tel)
+    return res, tel, idle, wall
+
+
+def obs_trace_gate(core, obs, res, tel) -> dict:
+    """``obs_bench.py::trace_gate``'s checks on one attached run."""
+    events = tel.tracer.to_json()["traceEvents"]
+    begins = {e["name"] for e in events
+              if e["ph"] == "B" and e["pid"] == obs.PID_JOBS}
+    submitted = {f"job-{j.uid}" for j in res.jobs}
+    check(begins == submitted, f"{len(begins)} job spans for "
+                               f"{len(submitted)} SUBMITs")
+    lanes = {}
+    for e in events:
+        if e["ph"] in "BE":
+            key = (e["pid"], e["tid"])
+            lanes[key] = lanes.get(key, 0) + (1 if e["ph"] == "B" else -1)
+    check(all(v == 0 for v in lanes.values()), f"unbalanced lanes: {lanes}")
+    ended = {e["name"]: e["ts"] for e in events
+             if e["ph"] == "E" and e["pid"] == obs.PID_JOBS
+             and not (e.get("args") or {}).get("closed_at_finalize")}
+    completed = [j for j in res.jobs
+                 if j.state is core.JobState.COMPLETED]
+    check(len(ended) == len(completed),
+          f"{len(ended)} end spans for {len(completed)} completed jobs")
+    for j in completed:
+        check(abs(ended[f"job-{j.uid}"] - j.end_time * 1e6) < 1.0,
+              f"job {j.uid}'s E span is not at its END")
+    fails = sum(e["ph"] == "i" and e["name"] == "NODE_FAIL" for e in events)
+    fails_bus = tel.event_counts.get("NODE_FAIL", 0)
+    check(fails_bus > 0 and fails == fails_bus,
+          f"{fails} NODE_FAIL instants for {fails_bus} bus events")
+    reshapes = sum(e["ph"] == "i" and e["name"] == "reshape"
+                   for e in events)
+    check(res.metrics.reshapes > 0 and reshapes == res.metrics.reshapes,
+          f"{reshapes} reshape instants for {res.metrics.reshapes} "
+          f"reshapes")
+    return {"trace_events": len(events), "jobs": len(submitted),
+            "completed": len(completed), "node_fails": fails_bus,
+            "reshapes": reshapes, "lanes": len(lanes),
+            "lanes_balanced": True, "dropped": tel.tracer.dropped}
+
+
+def run_obs(core, np, torch, obs, node_score, rsch_mod, run_51, main: dict,
+            device=None) -> dict:
+    """Phase 6h: ``benchmarks/obs_bench.py``'s identity, overhead and
+    trace gates rebuilt from ``repro_torch``, and the §5.1 replay
+    attached.  Attached with the audit on, RSCH's Level-2 pass scores
+    the whole node table (no subset), and the audit holds each bound
+    node's breakdown against the kernel's fused score."""
+    zero_launches(node_score)
+    t0 = t_phase = time.perf_counter()
+    probe = None if device == "cpu" else \
+        (lambda: torch.cuda.current_stream().query())
+
+    # Identity: attached = detached on the card = attached with numpy.
+    jobs = parity_trace(core, OBS_IDENTITY_JOBS)
+    families = decisions = 0
+    for policy, strategy in policy_strategy_matrix(core):
+        tag = f"obs identity {policy.name} x {strategy.name}"
+        kw = dict(n_gpus=OBS_IDENTITY_GPUS, policy=policy,
+                  strategy=strategy)
+        base, _ = bench_sim(core, jobs, "kernel", device, **kw)
+        outs, audits = {}, {}
+        for backend in ("kernel", "np"):
+            tel = obs.Telemetry()
+            inst, _ = bench_sim(core, jobs, backend, device, telemetry=tel,
+                                **kw)
+            outs[backend], audits[backend] = run_outcome(inst), audited(tel)
+            families = len(tel.registry.names())
+            check(families > 0 and tel.audit.bound(),
+                  f"{tag} ({backend}): nothing registered or audited")
+        check(run_outcome(base) == outs["kernel"],
+              f"{tag}: attaching perturbed the card's run")
+        held_equal(tag, outs["kernel"], outs["np"])
+        check(audits["kernel"] == audits["np"],
+              f"{tag}: audited decisions differ between card and numpy")
+        decisions += len(audits["kernel"])
+    identity = {"configs": len(policy_strategy_matrix(core)),
+                "jobs": len(jobs), "gpus": OBS_IDENTITY_GPUS,
+                "metric_families": families, "decisions": decisions,
+                "wall_s": time.perf_counter() - t0}
+
+    # Overhead at 10k nodes, detached and attached in turns; per-pod.
+    t0 = time.perf_counter()
+    overhead = {b: obs_overhead(core, np, obs, b, device)
+                for b in ("kernel", "np")}
+    check(overhead["kernel"]["picks"] == overhead["np"]["picks"]
+          and overhead["kernel"]["decision"] == overhead["np"]["decision"],
+          "the overhead gang's picks or audit differ between card and numpy")
+    per_pod = {b: obs_per_pod(core, np, obs, b, device)
+               for b in ("kernel", "np")}
+    check(per_pod["kernel"] == per_pod["np"],
+          "the per-pod gang's picks or audit differ between card and numpy")
+    check(per_pod["kernel"][0] == overhead["kernel"]["picks"],
+          "the per-pod gang placed differently from the batched one")
+    overhead_s = time.perf_counter() - t0
+
+    # Trace completeness under failures and reshapes.
+    t0 = time.perf_counter()
+    res, tel, idle, wall = obs_trace_run(core, np, obs, "kernel", device,
+                                         probe)
+    res_np, tel_np, _, wall_np = obs_trace_run(core, np, obs, "np", device)
+    trace = obs_trace_gate(core, obs, res, tel)
+    check(trace == obs_trace_gate(core, obs, res_np, tel_np),
+          "the trace gate's counts differ between card and numpy")
+    held_equal("obs trace run", elastic_outcome(res), elastic_outcome(res_np))
+    check(job_and_cluster_lanes(obs, tel)
+          == job_and_cluster_lanes(obs, tel_np),
+          "the simulated-time trace differs between card and numpy")
+    check(audited(tel) == audited(tel_np),
+          "the trace run's audit differs between card and numpy")
+    check(probe is None or (idle and all(idle)),
+          f"a score span closed with work queued on the card "
+          f"({idle.count(False)} of {len(idle)})")
+    trace.update(wall_s_cuda=wall, wall_s_host_numpy=wall_np,
+                 score_spans_checked_idle=len(idle),
+                 phase_wall_s=time.perf_counter() - t0)
+
+    # §5.1 attached: the full-width Level-2 pass on the paper's run.
+    before = node_score_launches(node_score)
+    tel = obs.Telemetry()
+    with CallRecorder(rsch_mod, "compute_node_scores_and_slots") as seam, \
+            CallRecorder(rsch_mod, "compute_node_scores") as seam1:
+        res, wall = run_51(device, telemetry=tel)
+    launches_51 = {k: v - before[k]
+                   for k, v in node_score_launches(node_score).items()}
+    tel_np = obs.Telemetry()
+    res_np, wall_np = run_51(device, "np", telemetry=tel_np)
+    want = {"placements": placement_key(main["res"].jobs),
+            "report": main["res"].metrics.report(),
+            "samples": sample_series(main["res"].metrics)}
+    for name, r in (("attached card", res), ("attached numpy", res_np)):
+        got = {"placements": placement_key(r.jobs),
+               "report": r.metrics.report(),
+               "samples": sample_series(r.metrics)}
+        held_equal(f"§5.1 {name} against detached card", got, want)
+    check(audited(tel) == audited(tel_np),
+          "§5.1 audited decisions differ between card and numpy")
+    # The four §5.1 arms again, in the reverse order, for walls in turns.
+    walls = {"cuda_attached": [wall], "host_numpy_attached": [wall_np],
+             "cuda_detached": [main["wall_cuda"]],
+             "host_numpy_detached": [main["wall_np"]]}
+    for backend, attach in (("np", True), ("kernel", True), ("np", False),
+                            ("kernel", False)):
+        r, w = run_51(device, backend,
+                      telemetry=obs.Telemetry() if attach else None)
+        check(placement_key(r.jobs) == want["placements"],
+              f"§5.1 ({backend}, attached {attach}) placed differently")
+        walls[("cuda" if backend == "kernel" else "host_numpy")
+              + ("_attached" if attach else "_detached")].append(w)
+    gap, n_breakdowns = breakdown_gap(tel)
+    check(n_breakdowns > 0 and gap <= OBS_BREAKDOWN_TOL,
+          f"a breakdown's terms miss the kernel's total by {gap}")
+    calls = seam.calls + seam1.calls
+    check(launches_51["node_scores_slots"] > 0
+          and launches_51["node_scores_slots"] == seam.calls,
+          f"§5.1 attached launches {launches_51}, seam calls {seam.calls}")
+    summary = tel.audit.summary()
+    main_attached = {
+        "cluster": "training_cluster_topology(8000)",
+        "launches": launches_51,
+        "launches_detached": main["launches"]["node_scores_slots"],
+        "nodes_per_pass": len(seam.last[0][0]),
+        "seam_calls": calls,
+        "seam_us_per_call": (seam.seconds + seam1.seconds)
+        / max(1, calls) * 1e6,
+        "walls_s": walls,
+        "decisions_audited": summary["decisions"],
+        "bound": summary["bound"], "rejected": summary["rejected"],
+        "audit_dropped": summary["dropped"],
+        "breakdowns": n_breakdowns, "breakdown_max_rel_gap": gap,
+        "breakdown_tol": OBS_BREAKDOWN_TOL,
+        "bundle_bytes": len(json.dumps(tel.bundle(), default=float)),
+        "trace_bytes": len(json.dumps(tel.tracer.to_json())),
+        "trace_events": len(tel.tracer),
+        "identical": ["detached card", "attached numpy"]}
+    launches = node_score_launches(node_score)
+    check(launches["node_scores"] > 0 and launches["node_scores_slots"] > 0,
+          f"obs phase missed a node-score kernel: {launches}")
+    out = {"phase": "obs", "identity": identity,
+           "overhead_10k": {
+               "cuda": {k: v for k, v in overhead["kernel"].items()
+                        if k not in ("picks", "decision")},
+               "host_numpy": {k: v for k, v in overhead["np"].items()
+                              if k not in ("picks", "decision")},
+               "wall_s": overhead_s},
+           "per_pod_10k": {"placements_equal_batched": True,
+                           "identical_to_numpy": True},
+           "trace": trace, "main_attached": main_attached,
+           "launches": launches,
+           "phase_wall_s": time.perf_counter() - t_phase,
+           "identical_to_numpy": True}
+    emit(out)
+    return out
 
 
 def fabric_pool(serve, router: str, specs, trace):
@@ -2637,7 +2988,7 @@ def main() -> int:
               f"{name} kernel disagrees with its plain version: {st}")
 
     # -- 4. main path: §5.1 through Simulator.run -------------------------
-    def run_51(device, backend="kernel", pipelined=False):
+    def run_51(device, backend="kernel", pipelined=False, telemetry=None):
         topo = core.training_cluster_topology(8000)
         state = core.ClusterState.create(topo)
         rsch = core.RSCH(topo, core.RSCHConfig(device=device,
@@ -2646,6 +2997,8 @@ def main() -> int:
                          core.QSCHConfig(policy=core.QueuePolicy.BACKFILL))
         sim = core.Simulator(state, qsch, core.SimConfig(
             pipelined_cycles=pipelined))
+        if telemetry is not None:
+            telemetry.attach(sim)
         jobs = core.training_trace(1000, seed=0, arrival_rate_per_hour=300)
         t = time.perf_counter()
         res = sim.run(jobs)
@@ -2845,6 +3198,12 @@ def main() -> int:
     elastic = run_elastic(core, np, node_score)
     federation = run_federation(core, np, node_score, rsch_mod)
     tuning = run_tuning(core, np, node_score, rsch_mod)
+
+    # -- 6h. obs: the telemetry layer attached, full-width passes ------
+    import repro_torch.obs as obs
+    obs_out = run_obs(core, np, torch, obs, node_score, rsch_mod, run_51,
+                      {"res": res_gpu, "wall_cuda": wall_gpu,
+                       "wall_np": wall_np, "launches": main_launches})
 
     # -- 7. wkv-sweep: the WKV kernel against its plain version ---------
     f32, bf16 = torch.float32, torch.bfloat16
@@ -3130,6 +3489,9 @@ def main() -> int:
          "launches_elastic": elastic["launches"]["node_scores_slots"],
          "launches_federation": federation["launches"]["node_scores_slots"],
          "launches_tuning": tuning["launches"]["node_scores_slots"],
+         "launches_obs": obs_out["launches"]["node_scores_slots"],
+         "launches_obs_51_full_width":
+             obs_out["main_attached"]["launches"]["node_scores_slots"],
          "mismatches": stats["slots"]["mismatches"],
          "max_abs_err": stats["slots"]["max_abs_err"],
          "ms": full["kernel_ms"], "plain_ms": full["plain_ms"],
@@ -3147,6 +3509,7 @@ def main() -> int:
          "launches_elastic": elastic["launches"]["node_scores"],
          "launches_federation": federation["launches"]["node_scores"],
          "launches_tuning": tuning["launches"]["node_scores"],
+         "launches_obs": obs_out["launches"]["node_scores"],
          "mismatches": stats["score"]["mismatches"],
          "max_abs_err": stats["score"]["max_abs_err"],
          "ms": k_score, "plain_ms": p_score, "bound_ms": b_score,

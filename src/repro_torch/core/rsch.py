@@ -236,26 +236,30 @@ class RSCH:
         """Compute a placement against a snapshot.  Pure — commits happen
         via ``ClusterState.allocate`` by the caller.  ``ctx`` gives
         Score plugins optional cluster context (e.g. running jobs)."""
+        obs = self.obs
+        audit_on = obs is not None and obs.audit_on
         spec = self.speculation
         if spec is not None and spec.job_uid == job.uid:
             # A pipelined speculative result exists for this job.  The
             # pipeline already verified no state mutation intervened;
             # here we verify the job itself (shape unchanged — elastic
             # reshapes recompute), the snapshot identity/mutation count,
-            # and the score-weight fingerprint (a tuning controller may
-            # have nudged plugin weights between cycles).
+            # the score-weight fingerprint (a tuning controller may
+            # have nudged plugin weights between cycles) and the audit
+            # regime (a speculation made before an auditing observer
+            # was attached carries no capture, so it recomputes).
             self.speculation = None
             if (spec.snap is snap and spec.mut == snap.mut_count
                     and spec.shape == (job.n_pods, job.gpus_per_pod,
                                        int(job.gpu_type), job.kind)
                     and spec.fingerprint
-                    == self._weights_fingerprint(job, snap)):
+                    == self._weights_fingerprint(job, snap)
+                    and (spec.result.audit is not None) == audit_on):
                 spec.consumed = True
                 return spec.result
         profile = self.profile_for(job)
-        obs = self.obs
         capture: Optional[Dict] = None
-        if obs is not None and obs.audit_on:
+        if audit_on:
             capture = {"profile": profile.name, "passes": []}
         result = ScheduleResult(None, "empty placement plan")
         for pass_ in profile.plan(job, snap):

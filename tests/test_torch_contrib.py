@@ -14,8 +14,10 @@ import numpy as np
 import pytest
 
 import repro.core as R
+import repro.obs  # noqa: F401 - registers the reference's DecisionAudit
 import repro.serve  # noqa: F401 - registers the reference's router plugins
 import repro_torch.core as T
+import repro_torch.obs  # noqa: F401 - registers the port's DecisionAudit
 import repro_torch.serve  # noqa: F401 - registers the port's router plugins
 from repro.core.framework import registry as ref_registry
 from repro_torch.core.framework import registry as port_registry
@@ -63,19 +65,10 @@ def spread_profiles(M, plugin):
 # ----------------------------------------------------------------------
 # Registry
 # ----------------------------------------------------------------------
-UNPORTED = ("obs",)
-
-
 def shipped(registry, package):
-    """Names registered by ``package``'s own modules (not by tests),
-    without the subpackages the port has not reached yet."""
-    out = set()
-    for name, factory in registry._REGISTRY.items():
-        mod = factory.__module__
-        if mod.startswith(package + ".") and not mod.startswith(
-                tuple(f"{package}.{u}" for u in UNPORTED)):
-            out.add(name)
-    return out
+    """Names registered by ``package``'s own modules (not by tests)."""
+    return {name for name, factory in registry._REGISTRY.items()
+            if factory.__module__.startswith(package + ".")}
 
 
 def test_registry_has_builtins_and_contrib():

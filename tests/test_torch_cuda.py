@@ -703,3 +703,64 @@ def test_weight_change_reaches_the_launched_kernel(cuda, monkeypatch):
              and c[0].endswith((".used", ".fit", ".group", ".topo"))]
     assert moved, "the climb never moved a training score weight"
     assert len(set(launched)) > 1
+
+
+# -- Telemetry: the audited full-width path -----------------------------------
+def _attached_run(backend, batched_gang=True, on_score=None):
+    """A small attached simulator run (64 nodes) on ``backend``: its
+    placements, report and audited decisions, and the telemetry."""
+    import repro_torch.core as T
+    from repro_torch.obs import Telemetry
+    topo = T.small_topology(n_nodes=64, gpus_per_node=8, nodes_per_leaf=8)
+    qsch = T.QSCH(T.QuotaManager({"t0": {0: 10 ** 6}}),
+                  T.RSCH(topo, T.RSCHConfig(score_backend=backend,
+                                            batched_gang=batched_gang)),
+                  T.QSCHConfig(policy=T.QueuePolicy.BACKFILL))
+    sim = T.Simulator(T.ClusterState.create(topo), qsch,
+                      T.SimConfig(tick_interval=30.0, binding_latency=45.0))
+    tel = Telemetry()
+    if on_score is not None:
+        done = tel._phase_done
+
+        def phase_done(scope, name, dt):
+            if name == "score":
+                on_score()
+            done(scope, name, dt)
+        tel._phase_done = phase_done
+    tel.attach(sim)
+    jobs = [j for j in T.training_trace(80, seed=3, arrival_rate_per_hour=500,
+                                        mean_duration_s=2400.0)
+            if j.n_gpus <= 256]
+    res = sim.run(jobs)
+    placed = [(j.uid, j.start_time, None if j.placement is None else
+               [(p.node, p.gpu_indices) for p in j.placement.pods])
+              for j in res.jobs]
+    return (placed, res.metrics.report(),
+            [d.as_dict() for d in tel.audit.decisions]), tel
+
+
+@pytest.mark.parametrize("batched_gang", [True, False])
+def test_attached_run_on_the_card_matches_host_numpy(cuda, batched_gang):
+    """Attached, the Level-2 pass runs the kernel over the whole node
+    table: placements, report and audited decisions equal the host numpy
+    run's, every breakdown sums to the kernel's fused total within 1e-6,
+    and the card's stream is idle whenever the ``score`` span closes."""
+    import math
+    counter = (node_score.node_scores_slots if batched_gang
+               else node_score.node_scores)
+    idle = []
+    before = counter.launches
+    card, tel = _attached_run("kernel", batched_gang, on_score=lambda:
+                              idle.append(torch.cuda.current_stream().query()))
+    launches = counter.launches - before
+    host, _ = _attached_run("np", batched_gang)
+    assert card == host
+    assert launches > 0 and idle and all(idle)
+    sums = 0
+    for d in tel.audit.bound():
+        for pa in d.passes:
+            for b in pa.breakdown:
+                assert math.isclose(sum(b.terms.values()), b.total,
+                                    rel_tol=1e-6, abs_tol=1e-9)
+                sums += 1
+    assert sums > 0 or not batched_gang

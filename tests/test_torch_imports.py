@@ -50,6 +50,11 @@ ELASTIC_FEDERATION_TUNING = (
     "repro_torch.core.tuning.params", "repro_torch.core.tuning.profile",
     "repro_torch.core.tuning.manager", "repro_torch.core.tuning.controllers")
 
+#: The telemetry layer.
+OBS = ("repro_torch.obs", "repro_torch.obs.registry", "repro_torch.obs.trace",
+       "repro_torch.obs.audit", "repro_torch.obs.telemetry",
+       "repro_torch.obs.report")
+
 
 def _env():
     env = dict(os.environ)
@@ -65,6 +70,7 @@ def test_every_module_imports_with_jax_blocked():
     assert int(count.split()[0]) >= 20
     assert set(COSCHED) <= set(names.split())
     assert set(ELASTIC_FEDERATION_TUNING) <= set(names.split())
+    assert set(OBS) <= set(names.split())
 
 
 def _imports(path):

@@ -1,0 +1,851 @@
+"""The port's telemetry layer against the JAX package's, on the CPU.
+
+Each of the first twenty tests is a port of one test of
+``tests/test_obs.py``: the same scenario runs through ``repro`` and
+``repro_torch`` (with ``device="cpu"``, so the score pass runs the
+kernels' plain versions).  The scenario makes the reference test's
+checks on both packages and returns what it observed — registry
+exposition, trace events, audited decisions, bundles and reports — which
+must be equal.  Wall-clock readings (cycle and phase durations, the
+scheduler lane's timestamps) are dropped before the comparison; every
+simulated-time field is compared exactly, and the audit's breakdown
+terms at a relative 1e-6.
+
+The port-side tests at the end cover what the device path adds: audits
+lifted long after their bind, at two widths on one staging; the score
+span closing after the seam's copy back; pipelined cycles auditing as
+unpipelined ones do; bundles that render alike with either report tool;
+and a federation member's scoped series.
+"""
+
+import dataclasses
+import json
+import math
+import types
+
+import numpy as np
+import pytest
+
+import repro.core as RC
+import repro.launch.combo_cache as RCC
+import repro.obs as RO
+import repro.obs.report as RO_report
+import repro.serve as RS
+import repro_torch.core as TC
+import repro_torch.core.rsch as T_rsch
+import repro_torch.launch.combo_cache as TCC
+import repro_torch.obs as TO
+import repro_torch.obs.report as TO_report
+import repro_torch.serve as TS
+
+from test_torch_dynamics import canon, cluster
+from test_torch_dynamics import rsch_config as core_rsch_config
+from test_torch_federation import placement_fp
+from test_torch_pipeline import sim_jobs
+
+REF = types.SimpleNamespace(core=RC, obs=RO, report=RO_report, serve=RS,
+                            cc=RCC, port=False)
+PORT = types.SimpleNamespace(core=TC, obs=TO, report=TO_report, serve=TS,
+                             cc=TCC, port=True)
+
+#: Families whose values are wall-clock readings or process-wide state.
+WALL_FAMILIES = ("kant_cycle_seconds",)
+PROCESS_FAMILIES = ("combo_cache_",)
+
+
+def same(got, want, rel=0.0, path="") -> None:
+    """``got == want`` with floats within ``rel`` of each other."""
+    if isinstance(want, dict):
+        assert isinstance(got, dict) and got.keys() == want.keys(), path
+        for k in want:
+            same(got[k], want[k], rel, f"{path}.{k}")
+    elif isinstance(want, (list, tuple)):
+        assert isinstance(got, (list, tuple)), path
+        assert len(got) == len(want), path
+        for i, (g, w) in enumerate(zip(got, want)):
+            same(g, w, rel, f"{path}[{i}]")
+    elif isinstance(want, float) and isinstance(got, float) and rel:
+        assert got == want or math.isclose(got, want, rel_tol=rel,
+                                           abs_tol=0.0), (path, got, want)
+    else:
+        assert got == want, (path, got, want)
+
+
+def held(scenario, *args, rel=0.0):
+    """Run ``scenario`` on the reference, then on the port; the port's
+    observations must equal the reference's (floats within ``rel``)."""
+    want = canon(scenario(REF, *args))
+    got = canon(scenario(PORT, *args))
+    same(got, want, rel)
+    return got
+
+
+def rsch_config(P, **kw):
+    return core_rsch_config(P.core, **kw)
+
+
+def make_qsch(P, topo, *, policy=None):
+    C = P.core
+    qm = C.QuotaManager({"t0": {0: 1024}}, mode=C.QuotaMode.ISOLATED)
+    return C.QSCH(qm, C.RSCH(topo, rsch_config(P)),
+                  C.QSCHConfig(policy=policy or C.QueuePolicy.BACKFILL),
+                  incremental_snapshots=True)
+
+
+# -- what an attached run observed, without its wall-clock readings -----
+def text_view(text):
+    return [ln for ln in text.splitlines()
+            if not any(f in ln for f in WALL_FAMILIES + PROCESS_FAMILIES)]
+
+
+def metrics_view(doc):
+    return {k: v for k, v in doc.items()
+            if not k.startswith(WALL_FAMILIES + PROCESS_FAMILIES)}
+
+
+def trace_view(P, events):
+    """Trace events with the scheduler lane's wall timestamps dropped;
+    job and cluster lanes run on simulated time and stay exact."""
+    out = []
+    for e in events:
+        e = dict(e)
+        if e["pid"] == P.obs.PID_SCHED and e["ph"] != "M":
+            e.pop("ts")
+        out.append(e)
+    return out
+
+
+def bundle_view(P, bundle):
+    out = dict(bundle)
+    out["phase_totals"] = sorted(bundle["phase_totals"])
+    if "metrics" in out:
+        out["metrics"] = metrics_view(bundle["metrics"])
+    if "trace" in out:
+        out["trace"] = {**bundle["trace"], "traceEvents": trace_view(
+            P, bundle["trace"]["traceEvents"])}
+    return out
+
+
+def report_view(report):
+    out = dict(report)
+    out["phases"] = sorted(report["phases"])
+    out["metrics"] = [m for m in report["metrics"]
+                      if not m["metric"].startswith(WALL_FAMILIES
+                                                    + PROCESS_FAMILIES)]
+    return out
+
+
+def decisions(audit):
+    return [d.as_dict() for d in audit.decisions]
+
+
+# ----------------------------------------------------------------------
+# Metric registry
+# ----------------------------------------------------------------------
+def test_counter_gauge_labels_and_ring():
+    def scenario(P):
+        reg = P.obs.MetricRegistry(ring=4)
+        c = reg.counter("reqs_total", "requests")
+        c.inc()
+        c.inc(2.0, zone="a")
+        assert c.value() == 1.0
+        assert c.value(zone="a") == 2.0
+        with pytest.raises(ValueError):
+            c.inc(-1.0)
+        g = reg.gauge("depth")
+        g.set(5.0)
+        g.inc(1.5)
+        assert g.value() == 6.5
+        for i in range(10):
+            g.set(float(i))
+        assert len(g.series()) == 4
+        assert g.series()[-1] == (0.0, 9.0)
+        return reg.expose_text(), reg.to_json(), c.label_sets()
+    held(scenario)
+
+
+def test_registry_clock_stamps_series():
+    def scenario(P):
+        t = {"now": 0.0}
+        reg = P.obs.MetricRegistry(clock=lambda: t["now"])
+        g = reg.gauge("x")
+        g.set(1.0)
+        t["now"] = 42.0
+        g.set(2.0)
+        assert g.series() == [(0.0, 1.0), (42.0, 2.0)]
+        return g.series(), reg.to_json()
+    held(scenario)
+
+
+def test_metric_type_conflict_raises():
+    def scenario(P):
+        reg = P.obs.MetricRegistry()
+        reg.counter("m")
+        with pytest.raises(TypeError) as exc:
+            reg.gauge("m")
+        return str(exc.value), reg.names()
+    held(scenario)
+
+
+def test_histogram_matches_numpy_reference():
+    def scenario(P):
+        rng = np.random.default_rng(3)
+        values = rng.uniform(0.0, 20_000.0, size=500)
+        values = np.concatenate([values, np.asarray(P.obs.DEFAULT_BUCKETS)])
+        reg = P.obs.MetricRegistry()
+        h = reg.histogram("lat", "latency")
+        for v in values:
+            h.observe(float(v))
+        bounds = np.asarray(P.obs.DEFAULT_BUCKETS)
+        ref = [int((values <= b).sum()) for b in bounds] + [len(values)]
+        assert h.cumulative() == ref
+        return h.cumulative(), reg.expose_text()
+    held(scenario)
+
+
+def test_prometheus_text_exposition():
+    def scenario(P):
+        reg = P.obs.MetricRegistry()
+        reg.counter("jobs_total", "jobs").inc(3, tenant="t0")
+        h = reg.histogram("wait", "queue wait", buckets=(1.0, 10.0))
+        h.observe(0.5)
+        h.observe(5.0)
+        h.observe(100.0)
+        text = reg.expose_text()
+        assert "# HELP jobs_total jobs" in text
+        assert "# TYPE jobs_total counter" in text
+        assert 'jobs_total{tenant="t0"} 3' in text
+        assert 'wait_bucket{le="1"} 1' in text
+        assert 'wait_bucket{le="10"} 2' in text
+        assert 'wait_bucket{le="+Inf"} 3' in text
+        assert "wait_sum 105.5" in text
+        assert "wait_count 3" in text
+        return text, reg.dumps()
+    held(scenario)
+
+
+def test_pull_collectors_run_on_exposition():
+    def scenario(P):
+        reg = P.obs.MetricRegistry()
+        calls = []
+
+        def pull(r):
+            calls.append(1)
+            r.gauge("pulled").set(7.0)
+
+        reg.add_collector(pull)
+        text = reg.expose_text()
+        assert "pulled 7" in text
+        doc = reg.to_json()
+        assert doc["pulled"]["series"][0]["value"] == 7.0
+        assert calls
+        json.dumps(doc)
+        return text, doc, len(calls)
+    held(scenario)
+
+
+# ----------------------------------------------------------------------
+# Tracer (Chrome trace-event format)
+# ----------------------------------------------------------------------
+def _lane_balance(events):
+    lanes = {}
+    for e in events:
+        if e["ph"] in "BE":
+            key = (e["pid"], e["tid"])
+            lanes[key] = lanes.get(key, 0) + (1 if e["ph"] == "B" else -1)
+    return lanes
+
+
+def test_trace_event_schema_and_balance():
+    def scenario(P):
+        O = P.obs
+        tr = O.Tracer()
+        tr.metadata(O.PID_SCHED, "scheduler (wall clock)")
+        tr.begin("cycle", 0.0, O.PID_SCHED, 0, args={"t_sim": 0.0})
+        tr.span("filter", 1.0, 5.0, O.PID_SCHED, 0)
+        tr.instant("NODE_FAIL", 3.0, O.PID_SCHED, 0, args={"node": 4})
+        tr.end("cycle", 10.0, O.PID_SCHED, 0)
+        doc = tr.to_json()
+        events = doc["traceEvents"]
+        for e in events:
+            assert {"ph", "name", "ts", "pid", "tid"} <= set(e)
+        instants = [e for e in events if e["ph"] == "i"]
+        assert instants and all(e["s"] == "t" for e in instants)
+        b_filter = next(e for e in events
+                        if e["name"] == "filter" and e["ph"] == "B")
+        assert "args" not in b_filter
+        assert all(v == 0 for v in _lane_balance(events).values())
+        json.dumps(doc)
+        return doc
+    held(scenario)
+
+
+def test_trace_close_all_tags_injected_ends():
+    def scenario(P):
+        tr = P.obs.Tracer()
+        tr.begin("job-1", 0.0, P.obs.PID_JOBS, 1)
+        tr.begin("job-2", 5.0, P.obs.PID_JOBS, 2)
+        assert len(tr.open_spans()) == 2
+        assert tr.close_all(50.0) == 2
+        assert tr.open_spans() == {}
+        ends = [e for e in tr.to_json()["traceEvents"] if e["ph"] == "E"]
+        assert len(ends) == 2
+        assert all(e["ts"] == 50.0 for e in ends)
+        assert all(e["args"]["closed_at_finalize"] for e in ends)
+        return tr.to_json()
+    held(scenario)
+
+
+def test_trace_event_cap_counts_drops():
+    def scenario(P):
+        tr = P.obs.Tracer(max_events=3)
+        tr.instant("a", 0.0, P.obs.PID_SCHED, 0)
+        tr.instant("b", 1.0, P.obs.PID_SCHED, 0)
+        tr.span("s", 2.0, 1.0, P.obs.PID_SCHED, 0)
+        assert tr.dropped == 2
+        assert len(tr.to_json()["traceEvents"]) == 2
+        return tr.to_json(), len(tr)
+    held(scenario)
+
+
+# ----------------------------------------------------------------------
+# Decision audit through a real QSCH cycle
+# ----------------------------------------------------------------------
+def _gang(P, uid=1, pods=2, gpg=8, **kw):
+    return P.core.Job(uid=uid, tenant="t0", gpu_type=0, n_pods=pods,
+                      gpus_per_pod=gpg, kind=P.core.JobKind.TRAIN, **kw)
+
+
+def test_audit_breakdown_sums_to_fused_score():
+    def scenario(P):
+        topo, state = cluster(P.core)
+        qsch = make_qsch(P, topo, policy=P.core.QueuePolicy.STRICT_FIFO)
+        tel = P.obs.Telemetry()
+        tel.attach_qsch(qsch)
+        qsch.submit(_gang(P))
+        result = qsch.cycle(state, 0.0)
+        assert len(result.scheduled) == 1
+        (dec,) = tel.audit.bound()
+        assert dec.outcome == "bound" and dec.reason == "ok"
+        placement = result.scheduled[0].placement
+        assert dec.nodes == sorted({p.node for p in placement.pods})
+        pa = dec.passes[-1]
+        assert pa.pool_size > 0
+        for st in pa.filters:
+            assert 0 <= st.nodes_after <= st.nodes_before
+            assert st.eliminated == st.nodes_before - st.nodes_after
+        assert pa.breakdown, "winning pass must carry a score breakdown"
+        assert {b.node for b in pa.breakdown} == set(dec.nodes)
+        for b in pa.breakdown:
+            assert b.terms
+            assert math.isclose(sum(b.terms.values()), b.total,
+                                rel_tol=1e-6, abs_tol=1e-9)
+        json.dumps(dec.as_dict())
+        return dec.as_dict()
+    held(scenario, rel=1e-6)
+
+
+def test_audit_records_rejection_reason():
+    def scenario(P):
+        topo, state = cluster(P.core)
+        qsch = make_qsch(P, topo, policy=P.core.QueuePolicy.STRICT_FIFO)
+        tel = P.obs.Telemetry()
+        tel.attach_qsch(qsch)
+        qsch.submit(_gang(P, uid=9, pods=64))
+        result = qsch.cycle(state, 0.0)
+        assert not result.scheduled
+        rej = tel.audit.rejected()
+        assert rej and rej[0].uid == 9
+        reason = rej[0].reason
+        assert reason
+        assert tel.audit.rejections_by_reason()[reason] >= 1
+        return decisions(tel.audit), tel.audit.summary(), \
+            text_view(tel.registry.expose_text())
+    held(scenario, rel=1e-6)
+
+
+def test_preemption_record_names_plugin_and_beneficiary():
+    def scenario(P):
+        class Ctx:
+            now = 120.0
+
+        tel = P.obs.Telemetry()
+        tel.emit_preempt(_gang(P, uid=7), Ctx(), ("TenantClawback", 11))
+        (rec,) = tel.audit.preemptions
+        assert rec.victim_uid == 7
+        assert rec.beneficiary_uid == 11
+        assert rec.plugin == "TenantClawback"
+        assert rec.t == 120.0
+        assert tel.registry.counter("kant_preemptions_total").value(
+            plugin="TenantClawback") == 1.0
+        return rec.as_dict(), tel.tracer.to_json(), \
+            text_view(tel.registry.expose_text())
+    held(scenario)
+
+
+def test_audit_ring_cap_reports_drops():
+    def scenario(P):
+        audit = P.obs.DecisionAudit(max_records=2)
+        for uid in range(5):
+            audit.on_bind(None, P.obs.PlacementDecision(
+                uid=uid, tenant="t0", kind="TRAIN", outcome="bound",
+                reason="ok", t=float(uid)), None)
+        assert len(audit.decisions) == 2
+        assert audit.dropped == 3
+        assert audit.summary()["decisions"] == 5
+        return audit.to_json()
+    held(scenario)
+
+
+def test_custom_observer_plugin_receives_taps():
+    def scenario(P):
+        class Recorder(P.obs.ObserverPlugin):
+            name = "RecorderTestOnly"
+
+            def __init__(self):
+                self.cycles = 0
+                self.binds = []
+
+            def on_cycle(self, span, ctx):
+                self.cycles += 1
+
+            def on_bind(self, job, decision, ctx):
+                self.binds.append((job.uid, decision))
+
+        rec = Recorder()
+        topo, state = cluster(P.core)
+        qsch = make_qsch(P, topo)
+        tel = P.obs.Telemetry(observers=[rec])
+        tel.attach_qsch(qsch)
+        qsch.submit(_gang(P, uid=3))
+        qsch.cycle(state, 0.0)
+        assert rec.cycles == 1
+        assert rec.binds and rec.binds[0][0] == 3
+        assert rec.binds[0][1] is tel.audit.bound()[0]
+        return rec.cycles, [(uid, d.as_dict()) for uid, d in rec.binds]
+    held(scenario, rel=1e-6)
+
+
+# ----------------------------------------------------------------------
+# Telemetry facade on a full simulator run
+# ----------------------------------------------------------------------
+def _trace_jobs(P, n=40, seed=11):
+    jobs = P.core.training_trace(n, seed=seed, arrival_rate_per_hour=400,
+                                 mean_duration_s=1800.0)
+    return [j for j in jobs if j.n_gpus <= 64]
+
+
+def _run_sim(P, jobs, telemetry=None, **sim_kw):
+    C = P.core
+    topo = C.small_topology(n_nodes=32, gpus_per_node=8, nodes_per_leaf=4)
+    state = C.ClusterState.create(topo)
+    qm = C.QuotaManager({"t0": {0: 10**6}})
+    rsch = C.RSCH(topo, rsch_config(P, train_strategy=C.Strategy.E_BINPACK))
+    qsch = C.QSCH(qm, rsch, C.QSCHConfig(policy=C.QueuePolicy.BACKFILL))
+    sim = C.Simulator(state, qsch,
+                      C.SimConfig(tick_interval=30.0, sample_interval=300.0,
+                                  binding_latency=45.0, **sim_kw))
+    if telemetry is not None:
+        telemetry.attach(sim)
+    return sim, sim.run(jobs)
+
+
+def test_detached_telemetry_is_byte_identical():
+    def scenario(P):
+        base_sim, base = _run_sim(P, _trace_jobs(P))
+        tel = P.obs.Telemetry()
+        inst_sim, inst = _run_sim(P, _trace_jobs(P), telemetry=tel)
+        assert placement_fp(base.jobs) == placement_fp(inst.jobs)
+        assert base.metrics.report() == inst.metrics.report()
+        assert tel.registry.counter("kant_cycles_total").value() > 0
+        tel.detach(inst_sim)
+        assert inst_sim.qsch.obs is None and inst_sim.qsch.rsch.obs is None
+        return placement_fp(inst.jobs), inst.metrics.report(), \
+            text_view(tel.registry.expose_text()), decisions(tel.audit)
+    held(scenario, rel=1e-6)
+
+
+def test_job_spans_cover_run_and_lanes_balance():
+    def scenario(P):
+        tel = P.obs.Telemetry()
+        _, result = _run_sim(P, _trace_jobs(P), telemetry=tel)
+        events = tel.tracer.to_json()["traceEvents"]
+        begins = {e["name"] for e in events
+                  if e["ph"] == "B" and e["pid"] == P.obs.PID_JOBS}
+        assert begins == {f"job-{j.uid}" for j in result.jobs}
+        assert all(v == 0 for v in _lane_balance(events).values())
+        recs = {r["uid"]: r for r in tel.job_records()}
+        for j in result.jobs:
+            if j.start_time is not None:
+                assert recs[j.uid]["first_start"] == j.start_time
+                assert recs[j.uid]["wait_s"] == j.start_time - j.submit_time
+        return trace_view(P, events), tel.job_records()
+    held(scenario)
+
+
+def test_pillar_toggles_disable_cleanly(tmp_path):
+    def scenario(P):
+        tel = P.obs.Telemetry(registry=False, tracing=False, audit=False)
+        assert tel.registry is None and tel.tracer is None
+        assert tel.audit is None and not tel.audit_on
+        with pytest.raises(ValueError):
+            tel.save_trace(str(tmp_path / "unused.json"))
+        bundle = tel.bundle()
+        assert "metrics" not in bundle and "trace" not in bundle
+        assert "audit" not in bundle
+        assert bundle["meta"]["pillars"] == {"registry": False,
+                                             "tracing": False,
+                                             "audit": False}
+        return bundle
+    held(scenario)
+
+
+# ----------------------------------------------------------------------
+# Bundle + report tool
+# ----------------------------------------------------------------------
+def test_bundle_report_and_cli_roundtrip(tmp_path):
+    def scenario(P):
+        tel = P.obs.Telemetry()
+        _run_sim(P, _trace_jobs(P), telemetry=tel)
+        bundle = tel.bundle()
+        assert bundle["meta"]["format"] == "repro.obs/1"
+        assert bundle["jobs"] and bundle["metrics"] and bundle["audit"]
+
+        path = tmp_path / f"bundle-{P.core.__name__}.json"
+        tel.save(str(path))
+        loaded = json.loads(path.read_text())
+        report = P.obs.build_report(loaded)
+        assert report["summary"]["jobs_seen"] == len(bundle["jobs"])
+        assert report["summary"]["jobs_completed"] > 0
+        assert report["audit"]["bound"] == \
+            bundle["audit"]["summary"]["bound"]
+        md = P.obs.render_markdown(report)
+        assert md.startswith("# Run telemetry report")
+        assert "## Summary" in md and "## Metrics" in md
+
+        out_md = tmp_path / "report.md"
+        assert P.report.main([str(path), "--format", "md",
+                              "-o", str(out_md)]) == 0
+        assert "# Run telemetry report" in out_md.read_text()
+        out_js = tmp_path / "report.json"
+        assert P.report.main([str(path), "--format", "json",
+                              "-o", str(out_js)]) == 0
+        assert json.loads(out_js.read_text())["summary"]["jobs_seen"] == \
+            report["summary"]["jobs_seen"]
+        return bundle_view(P, loaded), report_view(report)
+    held(scenario, rel=1e-6)
+
+
+# ----------------------------------------------------------------------
+# Satellite publishers: serving pool + combo caches
+# ----------------------------------------------------------------------
+def test_replica_pool_publishes_to_registry():
+    def scenario(P):
+        reg = P.obs.MetricRegistry()
+        pool = P.serve.ReplicaPool(
+            [P.serve.ReplicaSpec("a", capability=1.0,
+                                 cost_per_1k_tokens=2.0)],
+            P.serve.LeastLoadedRouter())
+        pool.route(P.core.ServeRequest(
+            uid=0, qclass=P.core.DEFAULT_QUERY_CLASSES[0], arrival_s=10.0,
+            prompt_tokens=64, output_tokens=16))
+        pool.bind_registry(reg, name="edge")
+        text = reg.expose_text()
+        assert 'serving_replicas{pool="edge"} 1' in text
+        assert "serving_observed_rps" in text
+        assert "serving_replica_demand" in text
+        return text, reg.to_json()
+    held(scenario)
+
+
+def test_combo_cache_stats_reach_registry():
+    name = "torch-obs-test-cache"
+
+    def scenario(P):
+        cache = P.cc.ComboCache(name)
+        assert cache.get("k") is None
+        cache.put("k", 1)
+        assert cache.get("k") == 1
+        st = P.cc.cache_stats()[name]
+        assert st == {"hits": 1, "misses": 1, "size": 1}
+        tel = P.obs.Telemetry()
+        text = tel.registry.expose_text()
+        assert f'combo_cache_hits{{cache="{name}"}} 1' in text
+        assert f'combo_cache_misses{{cache="{name}"}} 1' in text
+        assert f'combo_cache_entries{{cache="{name}"}} 1' in text
+        return st, [ln for ln in text.splitlines() if name in ln]
+    held(scenario)
+
+
+# ----------------------------------------------------------------------
+# Port side: the audited device path
+# ----------------------------------------------------------------------
+class Eager(TO.ObserverPlugin):
+    """Lifts every decision the moment it is bound."""
+
+    name = "EagerLiftTestOnly"
+
+    def __init__(self):
+        self.seen = []
+
+    def on_bind(self, job, decision, ctx):
+        self.seen.append(decision.as_dict())
+
+
+def _width_run(n_nodes, tel, seed):
+    C = TC
+    topo = C.small_topology(n_nodes=n_nodes, gpus_per_node=8,
+                            nodes_per_leaf=4)
+    state = C.ClusterState.create(topo)
+    qsch = C.QSCH(C.QuotaManager({"t0": {0: 10**6}}),
+                  C.RSCH(topo, C.RSCHConfig(device="cpu")),
+                  C.QSCHConfig(policy=C.QueuePolicy.BACKFILL))
+    sim = C.Simulator(state, qsch, C.SimConfig(tick_interval=30.0,
+                                               binding_latency=45.0))
+    tel.attach(sim)
+    jobs = [j for j in C.training_trace(40, seed=seed,
+                                        arrival_rate_per_hour=600,
+                                        mean_duration_s=1800.0)
+            if j.n_gpus <= 8 * n_nodes // 2]
+    return sim.run(jobs)
+
+
+def test_lazy_lift_reads_each_pass_own_totals_at_two_widths():
+    """Decisions read only after later passes at another width (one CPU
+    staging, reused and grown) equal decisions lifted at their bind, and
+    each pass's totals are the f32 score of its own captured inputs."""
+    widths = ((16, 3), (64, 4))
+    eager = {}
+    for n, seed in widths:
+        obs = Eager()
+        _width_run(n, TO.Telemetry(observers=[obs]), seed)
+        eager[n] = obs.seen
+    lazy = {}
+    for n, seed in widths:
+        lazy[n] = TO.Telemetry()
+        _width_run(n, lazy[n], seed)
+    for n, _ in widths:
+        for _ in range(3):                # more passes at the other widths
+            _width_run(80 - n, TO.Telemetry(), 9)
+        got = [d for d in lazy[n].audit.bound()]
+        assert [d.as_dict() for d in got] == eager[n]
+        checked = 0
+        for d in got:
+            for raw, pa in zip(d._raw_passes, d.passes):
+                bd = raw["breakdown"]
+                if not bd:
+                    continue
+                w = TC.combine_weights(TC.ScoreWeights(*row[1:])
+                                       for row in bd["weights"])
+                want = TC.node_scores_np(
+                    bd["free"], bd["used"], np.ones(len(bd["nodes"]), bool),
+                    bd["gload"], bd["tpref"], int(bd["request"]),
+                    int(bd["g"]), w)
+                assert np.array_equal(bd["totals"].view(np.int32),
+                                      want.view(np.int32))
+                for b in pa.breakdown:
+                    assert math.isclose(sum(b.terms.values()), b.total,
+                                        rel_tol=1e-6, abs_tol=1e-9)
+                checked += 1
+        assert checked >= 10, checked
+
+
+def test_score_span_closes_after_the_seam_returns(monkeypatch):
+    """The ``score`` phase of every attached pass closes after the packed
+    seam has launched, copied back and returned — never at the launch."""
+    from repro_torch.kernels import ops
+    log = []
+    launch = ops.node_scores_and_slots
+    seam = T_rsch.compute_node_scores_and_slots
+
+    def counted_launch(*a, **kw):
+        log.append("launch")
+        return launch(*a, **kw)
+
+    def counted_seam(*a, **kw):
+        out = seam(*a, **kw)
+        log.append("returned")
+        return out
+
+    tel = TO.Telemetry()
+    done = tel._phase_done
+
+    def phase_done(scope, name, dt):
+        if name == "score":
+            log.append("score-closed")
+        done(scope, name, dt)
+
+    monkeypatch.setattr(ops, "node_scores_and_slots", counted_launch)
+    monkeypatch.setattr(T_rsch, "compute_node_scores_and_slots",
+                        counted_seam)
+    monkeypatch.setattr(tel, "_phase_done", phase_done)
+    res = _run_sim(PORT, _trace_jobs(PORT), telemetry=tel)[1]
+    assert all(j.placement is not None for j in res.jobs)
+    n = log.count("score-closed")
+    assert n > 0 and log.count("launch") == n
+    assert log == ["launch", "returned", "score-closed"] * n
+    assert tel.phase_totals["score"] > 0.0
+
+
+def _pipeline_sim(P, policy, pipelined, n_nodes=32):
+    C = P.core
+    topo = C.small_topology(n_nodes=n_nodes, gpus_per_node=8,
+                            nodes_per_leaf=4)
+    state = C.ClusterState.create(topo)
+    qsch = C.QSCH(C.QuotaManager({"t0": {0: 10**6}}),
+                  C.RSCH(topo, rsch_config(P)),
+                  C.QSCHConfig(policy=C.QueuePolicy[policy]))
+    return C.Simulator(state, qsch, C.SimConfig(
+        tick_interval=30.0, binding_latency=45.0,
+        pipelined_cycles=pipelined))
+
+
+@pytest.mark.parametrize("policy", ["BACKFILL", "STRICT_FIFO"])
+def test_pipelined_cycles_audit_like_unpipelined(policy):
+    """Attached from the start, a pipelined run schedules unspeculated
+    and audits exactly as the unpipelined run does, on both packages."""
+    def scenario(P):
+        out = {}
+        for pipelined in (False, True):
+            sim = _pipeline_sim(P, policy, pipelined)
+            tel = P.obs.Telemetry()
+            tel.attach(sim)
+            res = sim.run(_trace_jobs(P, n=60, seed=5))
+            out[pipelined] = (placement_fp(res.jobs), res.metrics.report(),
+                              decisions(tel.audit), tel.audit.summary())
+            if pipelined:
+                assert res.pipeline["speculated"] == 0, res.pipeline
+        same(canon(out[True]), canon(out[False]))
+        return out[True]
+    held(scenario, rel=1e-6)
+
+
+def test_speculation_armed_before_attach_recomputes_with_audit():
+    """A speculation computed while detached and armed for the first
+    attached cycle carries no capture: RSCH recomputes it, so the audit
+    after attaching equals the unpipelined run's.  The workload is
+    ``test_torch_pipeline.py::test_pipeline_hits_under_contention``'s: a
+    fragmentation-blocked head re-scored every cycle, so a detached
+    pipelined run consumes speculations; the telemetry attaches just
+    before the first cycle that consumed one."""
+    def run(pipelined, attach_after=None):
+        topo = TC.small_topology(n_nodes=24, gpus_per_node=8,
+                                 nodes_per_leaf=8)
+        qsch = TC.QSCH(TC.QuotaManager({f"t{i}": {0: 10 ** 6}
+                                        for i in range(3)}),
+                       TC.RSCH(topo, TC.RSCHConfig(device="cpu")),
+                       TC.QSCHConfig(policy=TC.QueuePolicy.BACKFILL))
+        sim = TC.Simulator(TC.ClusterState.create(topo), qsch,
+                           TC.SimConfig(pipelined_cycles=pipelined))
+        tel, cycle, hit_cycles, armed = TO.Telemetry(), qsch.cycle, [], []
+
+        def counted(state, now):
+            hits = qsch.pipeline.hits if pipelined else 0
+            result = cycle(state, now)
+            if pipelined and qsch.pipeline.hits > hits:
+                hit_cycles.append(counted.n)
+            counted.n += 1
+            if counted.n == attach_after:
+                spec = getattr(qsch.pipeline, "_spec", None)
+                armed.append(spec and spec.job_uid)
+                tel.attach(sim)
+            return result
+        counted.n = 0
+        qsch.cycle = counted
+        res = sim.run(sim_jobs(TC, np.random.default_rng(6), 40))
+        return res, tel, hit_cycles, armed
+
+    _, _, hit_cycles, _ = run(True)
+    assert hit_cycles, "the detached pipelined run consumed nothing"
+    k = hit_cycles[0]
+    piped, tel_p, _, armed = run(True, attach_after=k)
+    plain, tel_u, _, _ = run(False, attach_after=k)
+    assert armed[0] is not None, "no speculation armed at the attach"
+    assert placement_fp(piped.jobs) == placement_fp(plain.jobs)
+    got, want = decisions(tel_p.audit), decisions(tel_u.audit)
+    assert got == want
+    first = next(d for d in got if d["uid"] == armed[0])
+    assert first["passes"], "the armed job's decision lost its passes"
+
+
+def test_bundles_render_alike_with_either_report_tool(tmp_path):
+    """A bundle of either package renders byte-equal with either
+    package's report tool, as markdown and as JSON."""
+    outputs = {}
+    for P in (REF, PORT):
+        tel = P.obs.Telemetry()
+        _run_sim(P, _trace_jobs(P), telemetry=tel)
+        path = tmp_path / f"{P.core.__name__}.json"
+        tel.save(str(path))
+        assert json.loads(path.read_text())["meta"]["format"] == \
+            "repro.obs/1"
+        for tool in (REF, PORT):
+            for fmt in ("md", "json"):
+                out = tmp_path / f"{P.port}-{tool.port}.{fmt}"
+                assert tool.report.main([str(path), "--format", fmt,
+                                         "-o", str(out)]) == 0
+                outputs[P.port, tool.port, fmt] = out.read_text()
+    for src in (False, True):
+        for fmt in ("md", "json"):
+            assert outputs[src, False, fmt] == outputs[src, True, fmt]
+    reports = [json.loads(outputs[src, True, "json"]) for src in (False, True)]
+    same(canon(report_view(reports[1])), canon(report_view(reports[0])),
+         rel=1e-6)
+
+
+def test_federation_member_series_at_the_64_node_parity_member():
+    """One Telemetry across a one-member federation of 64 nodes labels
+    every series ``member="solo"``; those series equal an unscoped
+    Telemetry's on the plain Simulator of the same member, and the
+    reference's."""
+    def scenario(P):
+        C = P.core
+        jobs = [j for j in C.training_trace(60, seed=11,
+                                            arrival_rate_per_hour=600,
+                                            mean_duration_s=1500.0)
+                if j.n_gpus <= 64]
+
+        def clone():
+            return [C.Job(uid=j.uid, tenant=j.tenant, gpu_type=j.gpu_type,
+                          n_pods=j.n_pods, gpus_per_pod=j.gpus_per_pod,
+                          submit_time=j.submit_time, duration=j.duration)
+                    for j in jobs]
+
+        kw = {"device": "cpu"} if P.port else {}
+        solo = C.make_member("solo", gpu_pools=((0, 64),),
+                             nodes_per_leaf=8, **kw)
+        tel = P.obs.Telemetry()
+        fsim = C.FederatedSimulator(C.FederatedCluster([solo]))
+        fsim.attach_telemetry(tel)
+        fedres = fsim.run(clone())
+
+        topo = solo.topology
+        state = C.ClusterState.create(topo)
+        qsch = C.QSCH(C.QuotaManager({"t0": {0: 10 ** 6}}),
+                      C.RSCH(topo, rsch_config(P)), C.QSCHConfig())
+        plain_tel = P.obs.Telemetry()
+        sim = C.Simulator(state, qsch, C.SimConfig())
+        plain_tel.attach(sim)
+        base = sim.run(clone())
+        assert placement_fp(base.jobs) == placement_fp(fedres.jobs)
+
+        scoped = {}
+        for name, fam in metrics_view(tel.registry.to_json()).items():
+            for s in fam["series"]:
+                labels = dict(s["labels"])
+                if labels.pop("member", None) == "solo":
+                    scoped[name, tuple(sorted(labels.items()))] = \
+                        s["samples"]
+        plain = {}
+        for name, fam in metrics_view(plain_tel.registry.to_json()).items():
+            for s in fam["series"]:
+                plain[name, tuple(sorted(s["labels"].items()))] = \
+                    s["samples"]
+        for key in ("kant_gar", "kant_queue_depth", "kant_allocated_gpus"):
+            assert scoped[key, ()] == plain[key, ()], key
+        assert scoped.keys() >= {k for k in plain
+                                 if k[0].startswith("kant_")
+                                 and "reason" not in dict(k[1])}
+        assert all(d.member == "solo" for d in tel.audit.decisions)
+        return sorted(scoped.items()), decisions(tel.audit)
+    held(scenario, rel=1e-6)

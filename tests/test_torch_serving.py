@@ -18,8 +18,10 @@ import numpy as np
 import pytest
 
 import repro.core as RC
+import repro.obs as RO
 import repro.serve as RS
 import repro_torch.core as TC
+import repro_torch.obs as TO
 import repro_torch.serve as TS
 from repro import configs as ref_configs
 from repro.models import Model as RefModel
@@ -307,6 +309,28 @@ def test_bind_registry_publishes_like_the_reference():
         values = reg.collect()
         assert values[("serving_replicas", ("pool", "fabric"))] == 2
         return sorted(values.items())
+    held(scenario)
+
+
+def test_bind_registry_publishes_to_the_real_registry():
+    """Each package's pool bound to its own ``MetricRegistry``: the
+    exposition carries every gauge the stand-in above records, with the
+    same value, and equals the reference's."""
+    def scenario(C, S):
+        obs = TO if C is TC else RO
+        pool = S.ReplicaPool([S.ReplicaSpec.from_arch(a)
+                              for a in FABRIC_ARCHS], S.LeastLoadedRouter())
+        pool.route_trace(C.request_trace(200, seed=1))
+        reg, fake = obs.MetricRegistry(), FakeRegistry()
+        pool.bind_registry(reg, name="fabric")
+        pool.bind_registry(fake, name="fabric")
+        text = reg.expose_text()
+        values = fake.collect()
+        assert values
+        for (name, *labels), value in values.items():
+            assert reg.get(name).value(**dict(labels)) == value, name
+        assert 'serving_replicas{pool="fabric"} 2' in text
+        return text, reg.to_json()
     held(scenario)
 
 

@@ -7,10 +7,8 @@ The scenario makes the reference test's checks on both packages and
 returns what it observed — placements, metric reports, sample series,
 the whole param-change log, controller counters — which must be equal.
 
-Two reference tests need ``repro.obs`` (the registry gauge, the audit
-and the trace of a parameter change) and wait for its port:
-``test_param_change_reaches_registry_audit_and_trace`` and
-``test_scoped_param_change_labels_member``.
+Two of them follow a parameter change into ``repro.obs`` and
+``repro_torch.obs`` (the registry gauge, the audit and the trace).
 
 The port-side tests at the end run a climb over every handle (score
 weights included) across the score backends and gang paths, and follow
@@ -24,10 +22,17 @@ import types
 import numpy as np
 import pytest
 
+import repro.core as R
+import repro.obs
 import repro_torch.core as T
 import repro_torch.core.rsch as T_rsch
+import repro_torch.obs
+
 
 from test_torch_dynamics import held, rsch_config
+
+#: Each package's telemetry layer, by its core.
+OBS = {R: repro.obs, T: repro_torch.obs}
 
 
 def small(M):
@@ -360,6 +365,51 @@ def test_manager_export_and_warm_start_round_trip():
         assert mgr2.space.snapshot() == prof.params
         return (run_outcome(res), prof.to_json(), changes(mgr.space),
                 changes(mgr2.space))
+    held(scenario)
+
+
+# ----------------------------------------------------------------------
+# Obs integration: ParamChange -> gauge + audit + trace
+# ----------------------------------------------------------------------
+def test_param_change_reaches_registry_audit_and_trace():
+    def scenario(M):
+        sim = make_sim(M, small(M))
+        tel = OBS[M].Telemetry()
+        tel.attach(sim)
+        mgr = M.TuningManager()
+        mgr.attach(sim)
+        mgr.space.set("qsch.max_preemptions_per_cycle", 32.0, now=123.0,
+                      source="test", force=True)
+        g = tel.registry.get("kant_tuned_param")
+        assert g.value(param="qsch.max_preemptions_per_cycle") == 32.0
+        assert tel.audit.summary()["param_changes"] == 1
+        change = tel.audit.param_changes[0]
+        assert change.value == 32.0 and change.source == "test"
+        events = [e for e in tel.tracer.to_json()["traceEvents"]
+                  if e.get("name") == "param-change"]
+        assert len(events) == 1
+        assert events[0]["args"]["param"] == \
+            "qsch.max_preemptions_per_cycle"
+        assert tel.audit.to_json()["param_changes"][0]["value"] == 32.0
+        return (events, tel.audit.to_json()["param_changes"],
+                tel.audit.summary(), g.to_json(),
+                tel.registry.get("kant_param_changes_total").to_json())
+    held(scenario)
+
+
+def test_scoped_param_change_labels_member():
+    def scenario(M):
+        sim = make_sim(M, small(M))
+        tel = OBS[M].Telemetry(tracing=False)
+        tel.attach(sim, scope="dc-a")
+        mgr = M.TuningManager()
+        mgr.attach(sim, scope="dc-a")
+        mgr.space.set("qsch.max_preemptions_per_cycle", 48.0, now=1.0,
+                      source="test")
+        g = tel.registry.get("kant_tuned_param")
+        assert g.value(param="qsch.max_preemptions_per_cycle",
+                       member="dc-a") == 48.0
+        return g.to_json(), tel.audit.to_json()["param_changes"]
     held(scenario)
 
 
