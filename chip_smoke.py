@@ -4,7 +4,8 @@
 Drives the port's main paths on one CUDA card — the scheduling cycle
 (with cluster dynamics, tidal autoscaling, cycle pipelining, elastic
 training, federation, self-tuning and the telemetry layer), the
-serving fabric, rwkv6-3b, glm4-9b, mixtral-8x7b (8 of 32 layers), hymba-1.5b,
+serving fabric, the placement cost model, rwkv6-3b served under a
+device mesh, rwkv6-3b, glm4-9b, mixtral-8x7b (8 of 32 layers), hymba-1.5b,
 seamless-m4t-large-v2 and llava-next-34b (16 of 60 layers) serving, and
 rwkv6-3b training — and holds every kernel of those paths against its
 plain torch version::
@@ -136,6 +137,36 @@ Phases, each printed as one JSON line on stdout:
              feeds ``demand_service`` into a ``TidalAutoscaler`` over
              8,000 GPUs for the trace's span, on the card and with numpy:
              placements identical, the fleet reaches the peak target;
+9c. cosched — a Kant placement becomes a job mesh and a placement-aware
+             step time (``launch/cosched.py``, the H100 ``ICI_BW``), and a
+             model runs under a device mesh.  (a) The main phase's
+             E-Binpack §5.1 run beside a Spread run of the same trace on
+             the card (score+slots launches > 0) and with numpy: each
+             placed job of >= 16 GPUs gets its placement quality,
+             effective collective bandwidth and estimated step time
+             (terms compute 1, memory 1, collective 2), card equal to
+             numpy per job; means by strategy and by job size printed;
+             gated: E-Binpack's mean NodeNetGroup deviation <= Spread's
+             (the paper's §5.1.3 claim).  The reference's own assert,
+             E-Binpack's mean step time <= Spread's, gated on its own
+             scenario (``tests/test_integration.py:56``), card equal to
+             numpy.  (b) A world-size-1 NCCL group from a ``FileStore``
+             and ``make_cpu_mesh(*job_mesh_shape(1))`` on the card: the
+             mesh, its ``mesh_key`` and the NCCL version.  (c) rwkv6-3b
+             FULL (f32, seed 0; ``param_specs`` counts 3,073,067,520
+             elements) serves 4 requests (16 new tokens, B=4) unsharded,
+             is freed, drawn again, distributed with ``param_shardings``
+             and serves them again under ``use_activation_sharding``:
+             tokens equal, prefill and last decode logits within 1e-5 of
+             max|logit|, the WKV kernel launched once per layer per
+             prefill on each rank's local streams, ``time_mix``'s streams
+             DTensors on the mesh; prefill ms a request, decode ms a step
+             and peak memory of both runs.  (d) The closed loop: a job
+             scheduled by the port's RSCH, the mesh of its size, the
+             glm4-9b smoke model distributed over it, one train step
+             under the context against the unsharded step on the card
+             (loss and grad norm rtol 1e-5).  The group is destroyed at
+             the end of the phase;
 10. dense-serve — glm4-9b at full width (f32, seeded weights drawn on
              the card, 9.4e9 parameters) behind a ``ServeEngine(
              batch_size=4, max_seq=1024)``: the same 8 prompt lengths and
@@ -222,6 +253,7 @@ import copy
 import dataclasses
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -343,6 +375,12 @@ FABRIC_ROUTERS = ("RoundRobinRouter", "LeastLoadedRouter",
 FABRIC_REQUESTS, FABRIC_SERVED = 2000, 8
 FABRIC_MAX_SEQ, FABRIC_MAX_PROMPT, FABRIC_MAX_NEW = 1024, 512, 16
 FABRIC_GPUS_PER_REPLICA, FABRIC_MAX_REPLICAS = 8, 60
+# The cosched phase: tests/test_integration.py:56's roofline terms (the
+# collective term at full ICI rate), and its rwkv6-3b parity gates.
+COSCHED_TERMS = {"compute": 1.0, "memory": 1.0, "collective": 2.0}
+COSCHED_LOGIT_TOL = 1e-5        # of max|logit|, sharded against unsharded
+COSCHED_TRAIN_RTOL = 1e-5       # loss and grad norm, sharded against not
+RWKV_PARAMS = 3_073_067_520
 
 
 def emit(obj) -> None:
@@ -2684,6 +2722,296 @@ def run_obs(core, np, torch, obs, node_score, rsch_mod, run_51, main: dict,
     return out
 
 
+def cosched_estimates(cosched, topo, jobs) -> list:
+    """(uid, GPUs, placement quality, effective collective bandwidth,
+    estimated step time) of every placed job of at least 16 GPUs, with
+    the terms of ``tests/test_integration.py:56``."""
+    out = []
+    for j in sorted(jobs, key=lambda j: j.uid):
+        if j.placement is None or j.n_gpus < 16:
+            continue
+        q = cosched.placement_quality(j.placement, topo, j.n_gpus)
+        out.append((j.uid, j.n_gpus, dataclasses.asdict(q),
+                    cosched.effective_collective_bw(q),
+                    cosched.estimated_step_time(COSCHED_TERMS, q)))
+    return out
+
+
+def cosched_summary(cosched, np, topo, card, host, what: str) -> dict:
+    """The perf model over a card run's and a host numpy run's placed
+    jobs: every job's values equal on both, and their means (by job
+    size too)."""
+    est = cosched_estimates(cosched, topo, card.jobs)
+    check(est == cosched_estimates(cosched, topo, host.jobs),
+          f"{what}: the card's estimates differ from numpy's")
+    check(len(est) > 0, f"{what}: no placed job of >= 16 GPUs")
+    by_size = {}
+    for _, n, _, _, t in est:
+        by_size.setdefault(n, []).append(t)
+    return {"jobs": len(est),
+            "mean_step_time": float(np.mean([e[4] for e in est])),
+            "mean_effective_collective_bw_gbps":
+                float(np.mean([e[3] for e in est])) / 1e9,
+            "mean_group_dev": float(np.mean([e[2]["group_dev"]
+                                             for e in est])),
+            "mean_cross_group_fraction":
+                float(np.mean([e[2]["cross_group_fraction"] for e in est])),
+            "mean_step_time_by_gpus": {
+                n: [len(v), float(np.mean(v))]
+                for n, v in sorted(by_size.items())}}
+
+
+def served_under(torch, np, cfg, params, dev, reqs, mesh=None) -> dict:
+    """``reqs`` served by a B=4 ``ServeEngine`` from ``params`` (under the
+    activation-sharding context of ``mesh`` when given): greedy tokens,
+    the host copies of every prefill's logits and of the last decode
+    step's, prefill ms a request, decode ms a step, peak memory."""
+    from repro_torch.sharding.context import gathered, use_activation_sharding
+    timings = {"_prefill": [], "_decode": []}
+    torch.cuda.reset_peak_memory_stats()
+    with use_activation_sharding(mesh):
+        engine, finished, wall = serve_run(torch, cfg, params, dev, reqs,
+                                           timings, batch_size=SERVE_BATCH)
+    check(len(finished) == len(reqs), f"{cfg.name} left requests unfinished")
+    check(all(ok for log in timings.values() for _, ok, _ in log),
+          f"{cfg.name} produced non-finite logits")
+    pre_s = [t for t, _, _ in timings["_prefill"]]
+    dec_s = [t for t, _, _ in timings["_decode"]]
+    return {"tokens": {r.uid: list(r.generated) for r in finished},
+            "prefill_logits": [gathered(lg).cpu()
+                               for _, _, lg in timings["_prefill"]],
+            "last_logits": gathered(timings["_decode"][-1][2]).cpu(),
+            "prefill_calls": engine.prefill_calls,
+            "prefill_ms_per_request": float(np.mean(pre_s)) * 1e3,
+            "decode_steps": len(dec_s),
+            "decode_ms_per_step_median": float(np.median(dec_s)) * 1e3,
+            "wall_s": wall,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def closed_loop_step(torch, core, cosched, mesh_mod, dev) -> dict:
+    """``tests/test_integration.py:84`` on ``dev``: a job scheduled by the
+    port's RSCH, the mesh of its placement, the glm4-9b smoke model
+    distributed over it and one train step under the activation context,
+    against the same step unsharded on ``dev``."""
+    from repro_torch.configs import get_arch, make_inputs
+    from repro_torch.core.snapshot import FullSnapshotter
+    from repro_torch.models import Model
+    from repro_torch.sharding import ShardingRules, distribute_state_dict
+    from repro_torch.sharding.context import gathered, use_activation_sharding
+    from repro_torch.train import AdamWConfig, adamw_init, make_train_step
+
+    topo = core.small_topology(n_nodes=4, gpus_per_node=1)
+    rsch = core.RSCH(topo, core.RSCHConfig(
+        device=None if dev.type == "cuda" else dev))
+    job = core.Job(uid=1, tenant="t0", gpu_type=0, n_pods=1, gpus_per_pod=1,
+                   kind=core.JobKind.TRAIN)
+    res = rsch.schedule(job, FullSnapshotter().take(
+        core.ClusterState.create(topo)))
+    check(res.placement is not None, "the closed loop's job was not placed")
+    shape = cosched.job_mesh_shape(res.placement.n_gpus)
+    mesh = mesh_mod.make_cpu_mesh(*shape, device=dev)
+    cfg = get_arch("glm4-9b", smoke=True)
+    batch = make_inputs(cfg, batch=2, seq=16, kind="train")
+
+    def step(sharded):
+        model = Model(cfg, device=dev).init(
+            torch.Generator(device=dev).manual_seed(0))
+        if sharded:
+            distribute_state_dict(model, ShardingRules(mesh))
+        fn = make_train_step(model, AdamWConfig(), remat=False)
+        with use_activation_sharding(mesh if sharded else None):
+            _, metrics = fn(adamw_init(dict(model.named_parameters())),
+                            batch)
+        return {k: float(gathered(v)) for k, v in metrics.items()}
+
+    want, got = step(False), step(True)
+    for key in ("loss", "grad_norm"):
+        check(abs(got[key] - want[key]) <= COSCHED_TRAIN_RTOL * abs(want[key])
+              and math.isfinite(got[key]),
+              f"closed loop {key}: sharded {got[key]} against {want[key]}")
+    return {"arch": cfg.name, "mesh_shape": list(shape),
+            "placement_nodes": res.placement.distinct_nodes(),
+            "sharded": got, "unsharded": want, "rtol": COSCHED_TRAIN_RTOL}
+
+
+def run_cosched(torch, np, core, node_score, wkv6, run_51, main: dict, dev,
+                smi: str, smoke: bool = False) -> dict:
+    """Phase 9c: a Kant placement becomes a mesh and a step time
+    (``launch/cosched.py``), and a model runs under a mesh.  (a) The
+    §5.1 E-Binpack run (``main``'s, card and host numpy) beside a Spread
+    run of the same trace on the card and with numpy: each placed job of
+    at least 16 GPUs gets its placement quality and estimated step time,
+    card equal to host, E-Binpack's mean no worse than Spread's.  (b) A
+    world-size-1 process group from a ``FileStore`` (NCCL on the card)
+    and ``make_cpu_mesh(*job_mesh_shape(1))`` on the card.  (c) rwkv6-3b
+    (FULL, f32, seed 0) served to 4 requests unsharded, then distributed
+    with ``param_shardings`` and served again under the mesh: tokens
+    equal, logits within ``COSCHED_LOGIT_TOL`` of max|logit|, the WKV
+    kernel launched on the local streams.  (d) The closed loop.  The
+    group is destroyed at the end of the phase, whatever happens."""
+    import tempfile
+    import torch.distributed as dist
+    import repro_torch.models.rwkv6 as rw
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import cosched, mesh as mesh_mod
+    from repro_torch.launch.combo_cache import mesh_key
+    from repro_torch.models import Model
+    from repro_torch.sharding import ShardingRules, distribute_state_dict
+
+    t_phase = time.perf_counter()
+    # -- (a) the placement cost model -----------------------------------
+    # §5.1 at the paper's size: main's E-Binpack runs, a Spread run of
+    # the same trace on the card (its launches counted) and with numpy.
+    topo = core.training_cluster_topology(8000)
+    runs = {"E_BINPACK": (main["res"], main["res_np"])}
+    zero_launches(node_score)
+    res, wall = run_51(None, strategy=core.Strategy.SPREAD)
+    spread_launches = node_score_launches(node_score)
+    host, host_wall = run_51(None, backend="np",
+                             strategy=core.Strategy.SPREAD)
+    runs["SPREAD"] = (res, host)
+    check(spread_launches["node_scores_slots"] > 0,
+          f"the Spread run never launched the score+slots kernel: "
+          f"{spread_launches}")
+    sec51 = {s: cosched_summary(cosched, np, topo, *pair, f"§5.1 {s}")
+             for s, pair in runs.items()}
+    del runs, res, host
+    # The paper's JTTED claim (§5.1.3): E-Binpack spans fewer NodeNetGroups.
+    gd = [sec51[s]["mean_group_dev"] for s in ("E_BINPACK", "SPREAD")]
+    check(gd[0] <= gd[1] + 1e-9,
+          f"§5.1: E-Binpack's mean group deviation {gd[0]} > Spread's {gd[1]}")
+    # The reference's assert, on its own scenario (tests/test_integration
+    # .py:56): 40 jobs of at most 64 GPUs on 16 nodes in leaves of 4.
+    sim_device = None if dev.type == "cuda" else dev
+    ref_jobs = [j for j in core.training_trace(
+        40, seed=7, arrival_rate_per_hour=240, mean_duration_s=1200.0)
+        if j.n_gpus <= 64]
+
+    def small_run(strategy, backend):
+        small = core.small_topology(n_nodes=16, gpus_per_node=8,
+                                    nodes_per_leaf=4)
+        qsch = core.QSCH(core.QuotaManager({"t0": {0: 100000}}),
+                         core.RSCH(small, core.RSCHConfig(
+                             device=sim_device, score_backend=backend,
+                             train_strategy=strategy)),
+                         core.QSCHConfig(policy=core.QueuePolicy.BACKFILL))
+        return small, core.Simulator(core.ClusterState.create(small), qsch,
+                                     core.SimConfig()).run(
+            clone_jobs(core, ref_jobs))
+
+    reference = {}
+    for strat in ("E_BINPACK", "SPREAD"):
+        small, card = small_run(getattr(core.Strategy, strat), "kernel")
+        _, host = small_run(getattr(core.Strategy, strat), "np")
+        reference[strat] = cosched_summary(cosched, np, small, card, host,
+                                           f"reference scenario {strat}")
+    st = [reference[s]["mean_step_time"] for s in ("E_BINPACK", "SPREAD")]
+    check(st[0] <= st[1] + 1e-9,
+          f"reference scenario: E-Binpack's mean estimate {st[0]} > "
+          f"Spread's {st[1]}")
+    out = {"phase": "cosched", "ici_bw": cosched.ICI_BW,
+           "terms": COSCHED_TERMS, "sec51": sec51,
+           "reference_scenario": reference,
+           "spread_wall_s_card": wall, "spread_wall_s_host_numpy": host_wall,
+           "launches": spread_launches, "card_equals_host": True}
+
+    # -- (b) a real mesh on the card -----------------------------------
+    store = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_pg_"), "store")
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            store=dist.FileStore(store, 1), world_size=1,
+                            rank=0)
+    try:
+        shape = cosched.job_mesh_shape(1)
+        mesh = mesh_mod.make_cpu_mesh(
+            *shape, device=None if dev.type == "cuda" else dev)
+        out["mesh"] = {"repr": repr(mesh), "key": mesh_key(mesh),
+                       "device_type": mesh.device_type,
+                       "backend": dist.get_backend(),
+                       "nccl": (".".join(map(str, torch.cuda.nccl.version()))
+                                if dev.type == "cuda" else None)}
+
+        # -- (c) rwkv6-3b FULL served under the mesh -------------------
+        cfg = get_arch(SERVE_ARCH, smoke=smoke)
+        _, prompts = serve_prompts(np, cfg.vocab, SERVE_BATCH)
+        reqs = [(p, SERVE_NEW) for p in prompts]
+
+        def seeded():
+            return Model(cfg, device=dev).init(
+                torch.Generator(device=dev).manual_seed(0), torch.float32)
+
+        model = seeded()
+        n_params = model.n_params()
+        n_specs = sum(t.numel() for t in flat_leaves(model.param_specs()))
+        check(n_specs == n_params and (smoke or n_params == RWKV_PARAMS),
+              f"param_specs count {n_specs}, the model {n_params}")
+        plain = served_under(torch, np, cfg, model.state_dict(), dev, reqs)
+        del model
+        free_memory(torch)
+        model = distribute_state_dict(seeded(), ShardingRules(mesh))
+        seen = []
+        orig = rw._wkv6_local
+
+        def recorded(r, *args, **kw):
+            seen.append((type(r).__name__, tuple(map(str, r.placements)),
+                         r.device_mesh is mesh))
+            return orig(r, *args, **kw)
+        wkv6.wkv6.launches = 0
+        rw._wkv6_local = recorded
+        try:
+            sharded = served_under(torch, np, cfg, model.state_dict(), dev,
+                                   reqs, mesh)
+        finally:
+            rw._wkv6_local = orig
+        wkv_launches = wkv6.wkv6.launches
+        del model
+        free_memory(torch)
+        check(sharded["tokens"] == plain["tokens"],
+              "tokens under the mesh differ from the unsharded run")
+        errs = [rel_err(a, b) for a, b in zip(
+            sharded["prefill_logits"] + [sharded["last_logits"]],
+            plain["prefill_logits"] + [plain["last_logits"]])]
+        check(max(errs) <= COSCHED_LOGIT_TOL,
+              f"logits under the mesh differ by {max(errs)} of max|logit|")
+        check(wkv_launches > 0
+              and wkv_launches == cfg.n_layers * sharded["prefill_calls"],
+              f"wkv6 launches {wkv_launches} under the mesh, "
+              f"{cfg.n_layers} x {sharded['prefill_calls']} prefills")
+        check(len(seen) == wkv_launches and all(
+            name == "DTensor" and on_mesh for name, _, on_mesh in seen),
+            f"time_mix's streams were not DTensors on the mesh: {seen[:2]}")
+        keep = ("prefill_ms_per_request", "decode_steps",
+                "decode_ms_per_step_median", "wall_s", "peak_mem_gb",
+                "prefill_calls")
+        out["serve"] = {"arch": cfg.name, "params": n_params,
+                        "param_specs_elements": n_specs,
+                        "requests": len(reqs), "batch": SERVE_BATCH,
+                        "new_tokens": SERVE_NEW,
+                        "unsharded": {k: plain[k] for k in keep},
+                        "sharded": {k: sharded[k] for k in keep},
+                        "tokens_equal": True,
+                        "max_logit_rel_err": max(errs),
+                        "tol": COSCHED_LOGIT_TOL,
+                        "wkv6_launches": wkv_launches,
+                        "r_placements": seen[0][1]}
+        out["launches"]["wkv6"] = wkv_launches
+
+        # -- (d) the closed loop at the smoke size ---------------------
+        out["closed_loop"] = closed_loop_step(torch, core, cosched,
+                                              mesh_mod, dev)
+    finally:
+        dist.destroy_process_group()
+    out.update(phase_wall_s=time.perf_counter() - t_phase, nvidia_smi=smi)
+    emit(out)
+    return out
+
+
+def flat_leaves(tree):
+    """The leaves of a nested dict."""
+    for v in tree.values():
+        yield from (flat_leaves(v) if isinstance(v, dict) else (v,))
+
+
 def fabric_pool(serve, router: str, specs, trace):
     """``specs`` behind ``router``, ``trace`` routed through it."""
     pool = serve.ReplicaPool(specs, getattr(serve, router)())
@@ -2988,11 +3316,12 @@ def main() -> int:
               f"{name} kernel disagrees with its plain version: {st}")
 
     # -- 4. main path: §5.1 through Simulator.run -------------------------
-    def run_51(device, backend="kernel", pipelined=False, telemetry=None):
+    def run_51(device, backend="kernel", pipelined=False, telemetry=None,
+               strategy=core.Strategy.E_BINPACK):
         topo = core.training_cluster_topology(8000)
         state = core.ClusterState.create(topo)
-        rsch = core.RSCH(topo, core.RSCHConfig(device=device,
-                                               score_backend=backend))
+        rsch = core.RSCH(topo, core.RSCHConfig(
+            device=device, score_backend=backend, train_strategy=strategy))
         qsch = core.QSCH(core.QuotaManager({"t0": {0: 10 ** 6}}), rsch,
                          core.QSCHConfig(policy=core.QueuePolicy.BACKFILL))
         sim = core.Simulator(state, qsch, core.SimConfig(
@@ -3439,6 +3768,11 @@ def main() -> int:
     fabric = run_fabric(torch, np, dev, counters, smi)
     free_memory(torch)
 
+    # -- 9c. cosched: placements to step times; rwkv6-3b under a mesh ----
+    cosched_out = run_cosched(torch, np, core, node_score, wkv6, run_51,
+                              {"res": res_gpu, "res_np": res_np}, dev, smi)
+    free_memory(torch)
+
     # -- 10-12. glm4-9b at full width: serve, breakdown, parity ---------
     run_dense(torch, np, dev, get_arch(DENSE_ARCH), counters, smi)
     free_memory(torch)
@@ -3492,6 +3826,8 @@ def main() -> int:
          "launches_obs": obs_out["launches"]["node_scores_slots"],
          "launches_obs_51_full_width":
              obs_out["main_attached"]["launches"]["node_scores_slots"],
+         "launches_cosched_spread":
+             cosched_out["launches"]["node_scores_slots"],
          "mismatches": stats["slots"]["mismatches"],
          "max_abs_err": stats["slots"]["max_abs_err"],
          "ms": full["kernel_ms"], "plain_ms": full["plain_ms"],
@@ -3528,6 +3864,7 @@ def main() -> int:
          "launches_path": f"serve: {SERVE_REQUESTS} requests, "
                           f"{SERVE_ARCH} full width",
          "launches_fabric": fabric["engines"][SERVE_ARCH]["launches"]["wkv6"],
+         "launches_cosched_mesh": cosched_out["launches"]["wkv6"],
          "max_abs_err": max(c["max_abs_err"] for c in sweep),
          "max_rel_err": max(c["max_rel_err"] for c in sweep),
          "ms": w_time["chunked_ms"], "step_ms": w_time["step_ms"],

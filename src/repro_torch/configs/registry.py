@@ -6,8 +6,8 @@ reference package's ``configs/registry.py``, so the tokens are
 identical.  The vlm and encdec stub embeddings (N(0, 1)·0.02) come from
 ``jax.random.PRNGKey(seed)`` there and from a CPU ``torch.Generator``
 seeded with ``seed`` here: the same distribution, not the same numbers.
-``input_specs`` (the dry-run's shape stand-ins) waits for the launch
-slice.
+``input_specs`` builds the same inputs' shapes and types as tensors on
+the meta device (the dry-run's allocation-free stand-ins).
 """
 
 from __future__ import annotations
@@ -18,8 +18,8 @@ from typing import Dict
 import numpy as np
 import torch
 
-from ..models.frontend import stub_normal
-from .base import ArchConfig
+from ..models.frontend import frame_embed_spec, patch_embed_spec, stub_normal
+from .base import ArchConfig, InputShape
 
 _MODULES: Dict[str, str] = {
     "mistral-large-123b": "mistral_large_123b",
@@ -42,6 +42,34 @@ def get_arch(arch_id: str, smoke: bool = False) -> ArchConfig:
         raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
     mod = importlib.import_module(f".{_MODULES[arch_id]}", __package__)
     return mod.SMOKE if smoke else mod.FULL
+
+
+def input_specs(cfg: ArchConfig, shape: InputShape, dtype=torch.bfloat16
+                ) -> Dict[str, torch.Tensor]:
+    """Meta-device stand-ins for every model input: int32 ``token`` (B,)
+    for decode; else ``tokens`` (B, S) (vlm: S - n_prefix text tokens
+    beside (B, n_prefix, d_model) ``patch_embeds``; encdec: beside
+    (B, S // enc_seq_divisor, d_model) ``enc_embeds``, both ``dtype``),
+    and ``labels`` like ``tokens`` for train."""
+    B, S = shape.global_batch, shape.seq_len
+
+    def ints(*dims):
+        return torch.empty(dims, dtype=torch.int32, device="meta")
+
+    if shape.kind == "decode":
+        return {"token": ints(B)}
+    batch: Dict[str, torch.Tensor] = {}
+    if cfg.family == "vlm":
+        batch["tokens"] = ints(B, S - cfg.n_prefix)
+        batch["patch_embeds"] = patch_embed_spec(cfg, B, dtype)
+    elif cfg.family == "encdec":
+        batch["tokens"] = ints(B, S)
+        batch["enc_embeds"] = frame_embed_spec(cfg, B, S, dtype)
+    else:
+        batch["tokens"] = ints(B, S)
+    if shape.kind == "train":
+        batch["labels"] = ints(*batch["tokens"].shape)
+    return batch
 
 
 def make_inputs(cfg: ArchConfig, *, batch: int, seq: int,

@@ -7,9 +7,10 @@ terms over the *partitioned per-device* program:
 * ``memory_term_s``     — bytes_per_device / memory bandwidth
 * ``collective_term_s`` — collective bytes_per_device / link bandwidth
 
-The dry-run that produces these artifacts has no port in this package
-yet; :func:`scaling_artifacts` stands in for it, as it does in the
-reference whenever no sweep exists.
+The dry-run that produces these artifacts is not yet ported to this
+package (its meshes and sharding rules are: ``launch/mesh.py``,
+``sharding/``); :func:`scaling_artifacts` stands in for it, as it does
+in the reference whenever no sweep exists.
 
 This module turns those artifacts into :class:`ParallelismPlan`s: the
 roofline step-time estimate overlaps compute with memory traffic

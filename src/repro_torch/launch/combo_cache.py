@@ -4,8 +4,8 @@ The dry-run pipeline lowers and analyses the same (architecture, input
 shape, mesh) combo over and over when a job's candidate parallelism
 plans are enumerated — re-lowering an identical combo is pure waste.
 :class:`ComboCache` is the shared memo: the dry-run keys its lowering
-and analysis results on the combo tuple (the dry-run has no port in
-this package yet), and :mod:`repro_torch.core.elastic.estimate` keys
+and analysis results on the combo tuple (the dry-run is not yet ported
+to this package), and :mod:`repro_torch.core.elastic.estimate` keys
 derived plan tables the same way.
 
 This module imports nothing heavy, so the elastic scheduler, its tests
@@ -44,11 +44,18 @@ def cache_stats() -> Dict[str, Dict[str, int]]:
 
 
 def mesh_key(mesh) -> Tuple[Tuple[str, int], ...]:
-    """Stable cache key for a mesh: its named axes and their sizes.
-    Duck-typed over any mesh with ``axis_names`` and a ``shape``
-    mapping, so key construction imports no mesh library."""
-    shape = mesh.shape   # Mapping[axis name, size]
-    return tuple((str(name), int(shape[name])) for name in mesh.axis_names)
+    """Stable cache key for a mesh: its named axes and their sizes, in
+    mesh order, e.g. ``(("data", 16), ("model", 16))``.  Duck-typed, so
+    key construction imports no mesh library: a torch ``DeviceMesh``
+    (``mesh_dim_names`` and a tuple ``shape``), or any mesh with
+    ``axis_names`` and a ``shape`` mapping from name to size, as the
+    reference's meshes and :class:`~repro_torch.sharding.auto.MeshShape`
+    have."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is not None:
+        return tuple((str(n), int(s)) for n, s in zip(names, mesh.shape))
+    shape = mesh.shape
+    return tuple((str(n), int(shape[n])) for n in mesh.axis_names)
 
 
 class ComboCache:

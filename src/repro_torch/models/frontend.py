@@ -14,7 +14,8 @@ the same way draws them, so the numbers differ from the reference's but
 not between devices: a model on the card and one on the host see the
 same embeddings.  They come back as host tensors, as
 :func:`repro_torch.configs.make_inputs`' do, and the model moves them to
-its device.  The dry-run's ``*_spec`` twins wait for the launch slice.
+its device.  The ``*_spec`` twins give their shapes and types as
+tensors on the meta device.
 """
 
 from __future__ import annotations
@@ -44,8 +45,20 @@ def patch_embeds(cfg: ArchConfig, batch: int, dtype=torch.float32,
     return _normal((batch, cfg.n_prefix, cfg.d_model), seed, dtype)
 
 
+def patch_embed_spec(cfg: ArchConfig, batch: int, dtype=torch.bfloat16
+                     ) -> torch.Tensor:
+    return torch.empty((batch, cfg.n_prefix, cfg.d_model), dtype=dtype,
+                       device="meta")
+
+
 def frame_embeds(cfg: ArchConfig, batch: int, seq_len: int,
                  dtype=torch.float32, seed: int = 0) -> torch.Tensor:
     """Audio stub: (B, seq_len // enc_seq_divisor, d_model) frames."""
     n = max(1, seq_len // cfg.enc_seq_divisor)
     return _normal((batch, n, cfg.d_model), seed + 1, dtype)
+
+
+def frame_embed_spec(cfg: ArchConfig, batch: int, seq_len: int,
+                     dtype=torch.bfloat16) -> torch.Tensor:
+    n = max(1, seq_len // cfg.enc_seq_divisor)
+    return torch.empty((batch, n, cfg.d_model), dtype=dtype, device="meta")

@@ -17,7 +17,7 @@ per-step products that do not depend on ``h`` (the decay and the input
 term) are computed for a chunk of steps at a time before the loop, and
 ``y`` for the chunk after it, so the loop itself is one ``addcmul`` a
 step.  Decode carries ``h`` explicitly: O(1) state.  The reference has
-no kernel here; the sharding hints are left out.
+no kernel here; its sharding hint on ``u`` stands where it stands.
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..sharding.context import constrain
 from .layers import Params, dense_init, init_attn, spec_attn
 
 DT_RANK = 32
@@ -66,7 +67,8 @@ def ssm_state_shape(batch: int, d_model: int, n_state: int
 
 def _ssm_inputs(p: Params, x: torch.Tensor):
     """x: (B, T, d) -> (u, dt, B_t, C_t) selective-scan inputs."""
-    u = F.silu(x @ p["w_in"])                               # (B,T,d)
+    u = constrain(F.silu(x @ p["w_in"]),
+                  ("batch", None, "model"))              # (B,T,d)
     bc = x @ p["w_bc"]
     n = p["a_log"].shape[-1]
     B_t, C_t = bc[..., :n], bc[..., n:]                     # (B,T,N)

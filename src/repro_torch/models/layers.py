@@ -10,8 +10,10 @@ Attention is the reference's chunked online softmax in plain torch,
 with its order of sums and masks: a q-chunk × kv-chunk loop, the
 padded-key mask, ``NEG_INF = -1e30`` (not ``-inf``), the ``l`` floor of
 1e-30, and GQA as a ``repeat_interleave`` of K/V over the head axis
-(head h uses KV head h // G).  The reference's ``constrain`` sharding
-hints are the identity without a mesh and are left out.
+(head h uses KV head h // G).  The reference's sharding hints
+(:func:`~repro_torch.sharding.context.constrain`, ``axis_size``) stand
+where its hints stand; without an installed mesh they return their
+input.
 
 ``jax.random`` keys become an explicit ``torch.Generator``: the draws
 have the reference's distributions but not its numbers, so parity tests
@@ -25,9 +27,13 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
+from ..sharding.context import axis_size, constrain
+
 Params = Dict[str, torch.Tensor]
 
 NEG_INF = -1e30
+HEADS = ("batch", None, "model", None)     # (B, S, H, hd) activations
+TOKENS = ("batch", None, None)             # (B, S, d) activations
 
 
 def round_up(n: int, m: int) -> int:
@@ -128,20 +134,33 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q = pad_axis(q, 1, Sq_p)
     k = pad_axis(k, 1, Sk_p)
     v = pad_axis(v, 1, Sk_p)
+    # Attention-chunk layout: shard heads over ``model`` when the head
+    # count divides it; otherwise shard the q-chunk (sequence) dim, which
+    # keeps the q-block local where an indivisible head count (llava 56,
+    # hymba 25, llama4 40 on a 16-way axis) would replicate it.
+    m_size = axis_size("model")
+    head_sharded = H % m_size == 0 and H >= m_size
+    hspec = ("batch", None, "model") if head_sharded \
+        else ("batch", "model", None)
+    hspec4 = hspec + (None,)
     outs = []
     for qi in range(Sq_p // q_chunk):
-        qb = q[:, qi * q_chunk:(qi + 1) * q_chunk].to(torch.float32)
+        qb = constrain(q[:, qi * q_chunk:(qi + 1) * q_chunk], hspec4
+                       ).to(torch.float32)
         q_pos = q_offset + qi * q_chunk + torch.arange(q_chunk, device=dev)
-        acc = torch.zeros((B, q_chunk, H, hd), dtype=torch.float32,
-                          device=dev)
-        m = torch.full((B, q_chunk, H), NEG_INF, dtype=torch.float32,
-                       device=dev)
-        l = torch.zeros((B, q_chunk, H), dtype=torch.float32, device=dev)
+        acc = constrain(torch.zeros((B, q_chunk, H, hd), dtype=torch.float32,
+                                    device=dev), hspec4)
+        m = constrain(torch.full((B, q_chunk, H), NEG_INF,
+                                 dtype=torch.float32, device=dev), hspec)
+        l = constrain(torch.zeros((B, q_chunk, H), dtype=torch.float32,
+                                  device=dev), hspec)
         for ki in range(Sk_p // kv_chunk):
             sl = slice(ki * kv_chunk, (ki + 1) * kv_chunk)
             # GQA: broadcast Kh -> H (head h uses kv head h // G).
-            kb = k[:, sl].repeat_interleave(G, dim=2).to(torch.float32)
-            vb = v[:, sl].repeat_interleave(G, dim=2).to(torch.float32)
+            kb = constrain(k[:, sl].repeat_interleave(G, dim=2),
+                           HEADS).to(torch.float32)
+            vb = constrain(v[:, sl].repeat_interleave(G, dim=2),
+                           HEADS).to(torch.float32)
             kv_idx = ki * kv_chunk + torch.arange(kv_chunk, device=dev)
             mask = (kv_idx[None, :] < Sk).expand(q_chunk, kv_chunk)
             if causal:
@@ -182,7 +201,8 @@ def spec_mlp(d_model: int, d_ff: int) -> Dict[str, Tuple[int, ...]]:
 
 def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
     h = torch.nn.functional.silu(x @ p["w_gate"]) * (x @ p["w_up"])
-    return h @ p["w_down"]
+    h = constrain(h, ("batch",) + (None,) * (h.ndim - 2) + ("model",))
+    return constrain(h @ p["w_down"], ("batch",) + (None,) * (h.ndim - 1))
 
 
 # ---------------------------------------------------------------------------
@@ -225,9 +245,10 @@ def _out(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
 
 
 def _qkv(p: Params, x: torch.Tensor, positions, theta: float):
-    q = apply_rope(_heads(x, p["wq"]), positions, theta)
-    k = apply_rope(_heads(x, p["wk"]), positions, theta)
-    return q, k, _heads(x, p["wv"])
+    """RoPE'd q and k, and v, of a full sequence, each pinned to heads."""
+    q = apply_rope(constrain(_heads(x, p["wq"]), HEADS), positions, theta)
+    k = apply_rope(constrain(_heads(x, p["wk"]), HEADS), positions, theta)
+    return q, k, constrain(_heads(x, p["wv"]), HEADS)
 
 
 def self_attention(p: Params, x: torch.Tensor, *, theta: float,
@@ -238,16 +259,16 @@ def self_attention(p: Params, x: torch.Tensor, *, theta: float,
         positions = torch.arange(x.shape[1], device=x.device)
     q, k, v = _qkv(p, x, positions, theta)
     o = chunked_attention(q, k, v, causal=causal, window=window)
-    return _out(o, p["wo"])
+    return constrain(_out(o, p["wo"]), TOKENS)
 
 
 def cross_attention(p: Params, x: torch.Tensor, memory_k: torch.Tensor,
                     memory_v: torch.Tensor) -> torch.Tensor:
     """Decoder cross-attention against precomputed encoder K/V (no RoPE,
     no mask)."""
-    o = chunked_attention(_heads(x, p["wq"]), memory_k, memory_v,
-                          causal=False)
-    return _out(o, p["wo"])
+    o = chunked_attention(constrain(_heads(x, p["wq"]), HEADS), memory_k,
+                          memory_v, causal=False)
+    return constrain(_out(o, p["wo"]), TOKENS)
 
 
 def memory_kv(p: Params, memory: torch.Tensor
@@ -264,7 +285,8 @@ def prefill_attention(p: Params, x: torch.Tensor, cache_window: int, *,
     covering the last ``cache_window`` positions."""
     q, k, v = _qkv(p, x, torch.arange(x.shape[1], device=x.device), theta)
     o = chunked_attention(q, k, v, causal=True, window=window)
-    return (_out(o, p["wo"]), ring_from_prefill(k, cache_window),
+    return (constrain(_out(o, p["wo"]), TOKENS),
+            ring_from_prefill(k, cache_window),
             ring_from_prefill(v, cache_window))
 
 
@@ -297,7 +319,9 @@ def decode_attention(p: Params, x: torch.Tensor, k_cache: torch.Tensor,
     hd = p["wq"].shape[-1]
     cl = torch.as_tensor(cache_len, device=x.device).to(torch.int64)
     cl = cl.expand(B) if cl.ndim == 0 else cl
-    q, k, v = _qkv(p, x, cl[:, None], theta)
+    q = apply_rope(_heads(x, p["wq"]), cl[:, None], theta)
+    k = apply_rope(_heads(x, p["wk"]), cl[:, None], theta)
+    v = _heads(x, p["wv"])
     rows = torch.arange(B, device=x.device)
     slot = torch.remainder(cl, W)
     k_cache = k_cache.index_put((rows, slot), k[:, 0].to(k_cache.dtype))

@@ -37,7 +37,16 @@ reference's ``jax.checkpoint`` of its scan body).  ``prefill`` and
 
 A ``Model`` is built on the meta device, so it holds no memory until
 :meth:`Model.init` draws its weights or ``load_state_dict(...,
-assign=True)`` takes them.
+assign=True)`` takes them.  Its spec twins, :meth:`Model.param_specs`
+(stacked, as the reference's) and :meth:`Model.cache_specs`, give the
+shapes and types as meta tensors.
+
+The reference's sharding hints (``constrain``) stand where its hints
+stand; they return their input unless a mesh is installed with
+:func:`repro_torch.sharding.context.use_activation_sharding`.  Under a
+mesh, with the parameters distributed by
+:func:`repro_torch.sharding.auto.distribute_state_dict`, every family
+runs on DTensors.
 """
 
 from __future__ import annotations
@@ -51,6 +60,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
+from ..sharding.context import constrain
 from . import hymba as hy
 from . import moe as moe_mod
 from . import rwkv6 as rw
@@ -95,6 +105,12 @@ def _assign(lp: nn.ParameterDict, block: Dict[str, Any], device) -> None:
             _assign(lp[k], t, device)
         else:
             lp[k] = _param(t, device)
+
+
+def _tree_map(tree: Dict[str, Any], fn) -> Dict[str, Any]:
+    """A (nested) dict with ``fn`` applied to each leaf."""
+    return {k: _tree_map(v, fn) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
 
 
 def _block_shapes(cfg: ArchConfig, head_dim: int) -> Dict[str, Any]:
@@ -216,6 +232,29 @@ class Model(nn.Module):
                                    cfg.n_kv_heads, hd, dtype, out_scale=rs)
         return p
 
+    def param_specs(self, dtype=torch.bfloat16) -> PyTree:
+        """The parameters as tensors on the meta device, stacked as the
+        reference's ``param_specs`` stacks them (``layers`` and
+        ``encoder`` leaves carry a leading layer axis), all in
+        ``dtype``."""
+        cfg = self.cfg
+        d, V = cfg.d_model, cfg.vocab
+
+        def meta(shape, n=None):
+            return torch.empty(shape if n is None else (n, *shape),
+                               dtype=dtype, device="meta")
+
+        specs = {"embed": meta((V, d)),
+                 "layers": _tree_map(_block_shapes(cfg, self.head_dim),
+                                     lambda s: meta(s, cfg.n_layers)),
+                 "final_norm": meta((d,)), "lm_head": meta((d, V))}
+        if cfg.n_enc_layers:
+            specs["encoder"] = _tree_map(
+                _enc_block_shapes(cfg, self.head_dim),
+                lambda s: meta(s, cfg.n_enc_layers))
+            specs["enc_norm"] = meta((d,))
+        return specs
+
     def n_params(self) -> int:
         return sum(p.numel() for p in self.parameters())
 
@@ -235,7 +274,7 @@ class Model(nn.Module):
         if self.cfg.family == "vlm":
             x = torch.cat([batch["patch_embeds"].to(x.device, x.dtype), x],
                           dim=1)
-        return x
+        return constrain(x, ("batch", "seq", None))
 
     def _encode(self, enc_embeds: torch.Tensor) -> torch.Tensor:
         """The encoder stack over the frame embeddings (bidirectional
@@ -334,12 +373,14 @@ class Model(nn.Module):
         entries = []
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for lp in self.layers:
+            x = constrain(x, ("batch", "seq", None))
             args = (lp, x, memory, cache_window, emit_cache)
             if remat:
                 x, entry, a = checkpoint(self._seq_block, *args,
                                          use_reentrant=False)
             else:
                 x, entry, a = self._seq_block(*args)
+            x = constrain(x, ("batch", "seq", None))
             if a is not None:
                 aux = aux + a
             entries.append(entry)
@@ -365,7 +406,7 @@ class Model(nn.Module):
         x = rmsnorm(x, self.final_norm, self.cfg.norm_eps)
         if self.cfg.family == "vlm":              # only text positions score
             x = x[:, batch["patch_embeds"].shape[1]:]
-        return x @ self.lm_head, aux
+        return constrain(x @ self.lm_head, ("batch", None, "model")), aux
 
     # -- caches -----------------------------------------------------------
     def cache_window(self, seq_len: int) -> int:
@@ -375,33 +416,36 @@ class Model(nn.Module):
         w = cfg.window if cfg.window > 0 else seq_len
         return min(seq_len, w, cfg.decode_window)
 
-    def init_cache(self, B: int, seq_len: int, dtype=torch.float32
-                   ) -> PyTree:
+    def cache_specs(self, B: int, seq_len: int, dtype=torch.bfloat16
+                    ) -> PyTree:
+        """The cache of :meth:`init_cache` as tensors on the meta device:
+        its shapes and types (``dtype`` for K/V, ``x_last`` and the
+        memory; f32 for the recurrent states; an int32 clock), no
+        memory."""
         cfg, n = self.cfg, self.head_dim
         L, d = cfg.n_layers, cfg.d_model
-        z = dict(device=self.device)
         if cfg.family == "ssm":
-            H = d // n
-            layers = {
-                "state": torch.zeros((L, B, H, n, n), dtype=torch.float32,
-                                     **z),
-                "x_last_t": torch.zeros((L, B, d), dtype=dtype, **z),
-                "x_last_c": torch.zeros((L, B, d), dtype=dtype, **z)}
+            layers = {"state": ((L, B, d // n, n, n), torch.float32),
+                      "x_last_t": ((L, B, d), dtype),
+                      "x_last_c": ((L, B, d), dtype)}
         else:
             shape = (L, B, self.cache_window(seq_len), cfg.n_kv_heads, n)
-            layers = {"k": torch.zeros(shape, dtype=dtype, **z),
-                      "v": torch.zeros(shape, dtype=dtype, **z)}
+            layers = {"k": (shape, dtype), "v": (shape, dtype)}
         if cfg.family == "hybrid":
-            layers["ssm"] = torch.zeros((L, B, d, cfg.ssm_state),
-                                        dtype=torch.float32, **z)
-        cache = {"layers": layers,
-                 "t": torch.zeros((), dtype=torch.int32, **z)}
+            layers["ssm"] = ((L, B, d, cfg.ssm_state), torch.float32)
+        cache = {"layers": layers, "t": ((), torch.int32)}
         if cfg.n_enc_layers:
             S_enc = max(1, seq_len // cfg.enc_seq_divisor)
             shape = (L, B, S_enc, cfg.n_kv_heads, n)
-            cache["memory"] = {"mk": torch.zeros(shape, dtype=dtype, **z),
-                               "mv": torch.zeros(shape, dtype=dtype, **z)}
-        return cache
+            cache["memory"] = {"mk": (shape, dtype), "mv": (shape, dtype)}
+        return _tree_map(cache, lambda sd: torch.empty(
+            sd[0], dtype=sd[1], device="meta"))
+
+    def init_cache(self, B: int, seq_len: int, dtype=torch.float32
+                   ) -> PyTree:
+        return _tree_map(self.cache_specs(B, seq_len, dtype),
+                         lambda s: torch.zeros(s.shape, dtype=s.dtype,
+                                               device=self.device))
 
     # -- prefill / decode ---------------------------------------------------
     @torch.no_grad()
@@ -468,6 +512,7 @@ class Model(nn.Module):
         shares the given one's ``memory`` tensors, so an in-place write to
         either (as ``ServeEngine._splice`` makes) reaches both."""
         x = embed(self.embed, torch.as_tensor(token)[:, None])
+        x = constrain(x, ("batch", "seq", None))
         layers = cache["layers"]
         memory = cache.get("memory")
         entries = []

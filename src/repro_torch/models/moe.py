@@ -24,7 +24,10 @@ The expert SwiGLU runs as ``torch.bmm`` over the contiguous ``E`` axis
 of the ``(E, d, f)`` weights, so no weight is copied: only the small
 ``(E, B·C, d)`` activations are rearranged.  Every expert's weights are
 read whatever the routing, as in the reference.  The reference's
-``constrain`` sharding hints have no counterpart here and are left out.
+sharding hints pin the expert buffer, the expert outputs and the combine
+as its hints do; its hint on the hidden ``(B, E, C, f)`` activations
+pins the port's ``(E, B·C, f)`` layout of them to experts over
+``model``.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..sharding.context import constrain
 from .layers import Params, dense_init
 
 DISPATCH = ("sort", "scatter")
@@ -116,6 +120,7 @@ def experts(p: Params, expert_in: torch.Tensor) -> torch.Tensor:
     B, E, C, d = expert_in.shape
     xe = expert_in.transpose(0, 1).reshape(E, B * C, d)
     h = F.silu(torch.bmm(xe, p["w_gate"])) * torch.bmm(xe, p["w_up"])
+    h = constrain(h, ("model", None, None))
     out = torch.bmm(h, p["w_down"])                           # (E, B*C, d)
     return out.reshape(E, B, C, d).transpose(0, 1)
 
@@ -145,8 +150,11 @@ def moe_ffn(p: Params, x: torch.Tensor, *, top_k: int,
     slot = torch.where(keep, flat_expert * C + pos,
                        torch.full_like(pos, E * C))           # E*C = trash
 
-    expert_out = experts(p, expert_buffer(x, flat_expert, onehot, slot,
-                                          top_k, C, dispatch))
+    expert_in = constrain(expert_buffer(x, flat_expert, onehot, slot,
+                                        top_k, C, dispatch),
+                          ("batch", "model", None, None))
+    expert_out = constrain(experts(p, expert_in),
+                           ("batch", "model", None, None))
 
     # Row-local gather back, weighted by the (renormalised) gates, in
     # x.dtype; the k assignments of a token are adjacent, so the combine
@@ -157,7 +165,8 @@ def moe_ffn(p: Params, x: torch.Tensor, *, top_k: int,
                               slot[..., None].expand(B, S * top_k, d))
     gates = (gate_vals.reshape(B, S * top_k)[..., None]
              * keep[..., None].to(torch.float32)).to(x.dtype)
-    out = (per_assign * gates).reshape(B, S, top_k, d).sum(dim=2)
+    out = constrain((per_assign * gates).reshape(B, S, top_k, d).sum(dim=2),
+                    ("batch", None, None))
 
     # Switch-style auxiliary load-balance loss.
     me = probs.mean(dim=(0, 1))                               # (E,)

@@ -16,8 +16,11 @@ A full sequence runs the recurrence through ``kernels.ops.wkv6``:
 ``backend="kernel"`` is the CUDA kernel (its plain version on CPU
 tensors), ``"scan"`` the plain step loop.  Decode carries ``S``
 explicitly in plain torch, as the reference does: O(1) state per token.
-The reference's sharding constraints are dropped (they are the identity
-without a mesh).
+The reference's sharding hints stand where its hints stand.  Under a
+mesh (DTensor streams), the WKV kernel is given each rank's own batch
+rows and heads as plain tensors, since a kernel reads ``data_ptr()``
+and a DTensor's is not its local shard; WKV is independent per head, so
+this is exact at any model-axis size that divides the head count.
 """
 
 from __future__ import annotations
@@ -27,8 +30,10 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..kernels import ops
+from ..sharding.context import constrain
 from .layers import Params, dense_init
 
 DECAY_LORA = 64
@@ -101,10 +106,10 @@ def _streams(p: Params, x: torch.Tensor, x_prev: torch.Tensor):
     mu = p["mu"].to(x.dtype)
     one = torch.ones((), dtype=x.dtype, device=x.device)
     xs = [x * mu[i] + x_prev * (one - mu[i]) for i in range(5)]
-    r = xs[0] @ p["wr"]
-    k = xs[1] @ p["wk"]
-    v = xs[2] @ p["wv"]
-    g = F.silu(xs[3] @ p["wg"])
+    r = constrain(xs[0] @ p["wr"], ("batch", None, "model"))
+    k = constrain(xs[1] @ p["wk"], ("batch", None, "model"))
+    v = constrain(xs[2] @ p["wv"], ("batch", None, "model"))
+    g = constrain(F.silu(xs[3] @ p["wg"]), ("batch", None, "model"))
     dd = torch.tanh(xs[4] @ p["decay_a"]) @ p["decay_b"]
     H, hd = p["decay_base"].shape
     w = torch.exp(-torch.exp(p["decay_base"].to(torch.float32).reshape(-1)
@@ -134,10 +139,53 @@ def time_mix(p: Params, x: torch.Tensor, state: torch.Tensor,
     x_prev = torch.cat([x_last[:, None, :], x[:, :-1]], dim=1)
     r, k, v, g, w = _streams(p, x, x_prev)
     u = p["bonus_u"].to(torch.float32)
-    o4, state = ops.wkv6(r, k, v, w, u, state, backend=_WKV[backend])
+    wkv = _wkv6_local if isinstance(r, DTensor) else ops.wkv6
+    o4, state = wkv(r, k, v, w, u, state, backend=_WKV[backend])
     o = o4.reshape(B, T, d)
     out = (o.to(x.dtype) * g) @ p["wo"]
     return out, state, x[:, -1]
+
+
+def _local_range(mesh, placements, dim: int, size: int) -> slice:
+    """This rank's slice of a tensor dim of ``size`` sharded as
+    ``placements`` (``torch.chunk`` pieces, split in mesh order)."""
+    start, length = 0, size
+    coord = mesh.get_coordinate()
+    for i, q in enumerate(placements):
+        if isinstance(q, Shard) and q.dim == dim:
+            chunk = -(-length // mesh.size(i))
+            lo = min(coord[i] * chunk, length)
+            start, length = start + lo, min(chunk, length - lo)
+    return slice(start, start + length)
+
+
+def _wkv6_local(r, k, v, w, u, state, backend: str):
+    """``ops.wkv6`` on DTensor streams (B, T, H, n): each rank runs it on
+    its own batch rows and heads as plain tensors, with ``u`` and the
+    initial state sliced to them, and the outputs are wrapped back as
+    DTensors (``o`` placed as ``r``, the state with batch and heads
+    placed alike).  Shards of T or n, and partial sums, are gathered
+    first: the recurrence runs over all of T and n."""
+    mesh = r.device_mesh
+    pl = tuple(q if isinstance(q, Shard) and q.dim in (0, 2)
+               else Replicate() for q in r.placements)
+    r, k, v, w = (t.redistribute(mesh, pl) for t in (r, k, v, w))
+    B, T, H, n = r.shape
+    rows = _local_range(mesh, pl, 0, B)
+    heads = _local_range(mesh, pl, 2, H)
+
+    def full(t):
+        return t.full_tensor() if isinstance(t, DTensor) else t
+    o, sT = ops.wkv6(*(t.to_local() for t in (r, k, v, w)),
+                     full(u)[heads], full(state)[rows, heads],
+                     backend=backend)
+    s_pl = [Shard(0 if q.dim == 0 else 1) if isinstance(q, Shard) else q
+            for q in pl]
+    return (DTensor.from_local(o, mesh, pl, run_check=False,
+                               shape=r.shape, stride=r.stride()),
+            DTensor.from_local(sT, mesh, s_pl, run_check=False,
+                               shape=(B, H, n, n),
+                               stride=(H * n * n, n * n, n, 1)))
 
 
 def time_mix_decode(p: Params, x: torch.Tensor, state: torch.Tensor,

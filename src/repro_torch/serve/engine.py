@@ -39,6 +39,7 @@ from ..configs.base import ArchConfig
 from ..device import resolve_device
 from ..models import frontend
 from ..models.model import Model
+from ..sharding.context import gathered, replicated
 from .step import make_decode_step, make_prefill_step
 
 PyTree = Any
@@ -182,10 +183,11 @@ class ServeEngine:
         return self._with_frontend(seq[None, :], self.max_seq * 4)
 
     def _batch_template(self, solo: PyTree) -> PyTree:
-        """Empty B-slot cache shaped like a solo (B=1) prefill cache."""
+        """Empty B-slot cache shaped like a solo (B=1) prefill cache
+        (replicated DTensors under a mesh)."""
         def z(x):
-            return torch.zeros((x.shape[0], self.B) + tuple(x.shape[2:]),
-                               dtype=x.dtype, device=x.device)
+            return replicated(x).new_zeros(
+                (x.shape[0], self.B) + tuple(x.shape[2:]))
         tpl = {"layers": {k: z(x) for k, x in solo["layers"].items()},
                "t": torch.zeros((self.B,), dtype=torch.int32,
                                 device=self.device)}
@@ -201,10 +203,12 @@ class ServeEngine:
         or what ``decode_step`` returned, which never aliases its input
         but for the encdec ``memory``, shared with the engine's earlier
         cache, which the engine no longer holds), so no one else sees the
-        write."""
+        write.  Under a mesh the cache's DTensors are replicated first:
+        DTensor writes no slice of a sharded dim in place."""
         for part in ("layers", "memory"):
             for k, c in cache.get(part, {}).items():
-                c[:, i].copy_(solo[part][k][:, 0])
+                c = cache[part][k] = replicated(c)
+                c[:, i].copy_(replicated(solo[part][k])[:, 0])
         cache["t"][i] = solo["t"]
 
     def _admit_per_slot(self) -> None:
@@ -224,7 +228,7 @@ class ServeEngine:
             if self.cache is None:
                 self.cache = self._batch_template(solo)
             self._splice(self.cache, solo, i)
-            self.last_token[i] = int(torch.argmax(logits[0]))
+            self.last_token[i] = int(torch.argmax(gathered(logits)[0]))
             req.admitted_step = self.steps
             self.slots[i] = req
 
@@ -315,4 +319,5 @@ class ServeEngine:
 
 def _greedy(logits: torch.Tensor) -> np.ndarray:
     """(B, V) logits -> (B,) int32 argmax tokens on the host."""
-    return torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+    tokens = torch.argmax(gathered(logits), dim=-1)
+    return tokens.to(torch.int32).cpu().numpy()

@@ -12,8 +12,8 @@ eps``) and so rounds otherwise, and which has no global-norm clip.
 clip scale from the global norm, bias corrections by ``step``, ``delta =
 mh / (sqrt(vh) + eps) + wd·p``, ``p - lr·delta``.
 It updates in place, one leaf at a time and under ``no_grad``, so that a
-large model needs no second copy of its weights or moments.  The
-dry-run's ``opt_specs`` waits for the launch slice.
+large model needs no second copy of its weights or moments.
+:func:`opt_specs` is the state's shape-only twin, on the meta device.
 """
 
 from __future__ import annotations
@@ -37,13 +37,26 @@ class AdamWConfig:
 
 
 def adamw_init(params: Tensors) -> Dict[str, object]:
-    """Zero f32 moments on each parameter's device, and step 0."""
+    """Zero f32 moments laid out as each parameter (on its device, or
+    placed as its DTensor), and step 0."""
     def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return torch.zeros_like(p, dtype=torch.float32)
     dev = next(iter(params.values())).device
     return {"m": {k: zeros(p) for k, p in params.items()},
             "v": {k: zeros(p) for k, p in params.items()},
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def opt_specs(param_specs, moment_dtype=torch.float32):
+    """The tree of :func:`adamw_init` as tensors on the meta device (the
+    dry-run's stand-in): ``m`` and ``v`` mirror ``param_specs`` (nested
+    dicts of tensors) in ``moment_dtype``, plus an int32 ``step``."""
+    def moments(tree):
+        return {k: moments(t) if isinstance(t, dict) else
+                torch.empty(t.shape, dtype=moment_dtype, device="meta")
+                for k, t in tree.items()}
+    return {"m": moments(param_specs), "v": moments(param_specs),
+            "step": torch.empty((), dtype=torch.int32, device="meta")}
 
 
 def _global_norm(grads: Tensors) -> torch.Tensor:

@@ -85,8 +85,7 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig = AdamWConfig(), *,
             total, loss, aux, grads = loss_and_grads(model, batch,
                                                      remat=remat)
         else:
-            grads = {k: torch.zeros(p.shape, dtype=torch.float32,
-                                    device=p.device)
+            grads = {k: torch.zeros_like(p, dtype=torch.float32)
                      for k, p in params.items()}
             sums = torch.zeros(3, dtype=torch.float32, device=model.device)
             for ub in _split(batch, microbatches):

@@ -764,3 +764,83 @@ def test_attached_run_on_the_card_matches_host_numpy(cuda, batched_gang):
                                     rel_tol=1e-6, abs_tol=1e-9)
                 sums += 1
     assert sums > 0 or not batched_gang
+
+
+@pytest.fixture
+def nccl_mesh(cuda):
+    """``make_cpu_mesh()`` with no process group: it defaults to the card
+    and starts a world-size-1 NCCL group from a ``FileStore``; the group
+    is destroyed after the test."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_cpu_mesh
+    assert not dist.is_initialized()
+    try:
+        yield make_cpu_mesh()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def test_cpu_mesh_defaults_to_the_card_over_nccl(nccl_mesh):
+    import torch.distributed as dist
+    from repro_torch.launch.combo_cache import mesh_key
+    assert nccl_mesh.device_type == "cuda"
+    assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+    assert mesh_key(nccl_mesh) == (("data", 1), ("model", 1))
+
+
+def test_rwkv6_wkv_kernel_under_the_mesh_matches_the_unsharded_kernel(
+        cuda, nccl_mesh):
+    """The rwkv6 smoke model distributed over the NCCL mesh: its prefill
+    launches the WKV kernel once per layer on the local streams, and its
+    logits, states and greedy decode equal the unsharded kernel path's."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs import get_arch
+    from repro_torch.models import Model
+    from repro_torch.sharding import ShardingRules, distribute_state_dict
+    from repro_torch.sharding.context import use_activation_sharding
+    cfg = get_arch("rwkv6-3b", smoke=True)
+    model = Model(cfg, device=cuda).init(
+        torch.Generator(device=cuda).manual_seed(0))
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, size=(2, 70)).astype(np.int32))}
+    token = torch.tensor([3, 5], dtype=torch.int32)
+    want, cache = model.prefill(batch)
+    want_dec, _ = model.decode_step(cache, token)
+    distribute_state_dict(model, ShardingRules(nccl_mesh))
+    before = wkv6.wkv6.launches
+    with use_activation_sharding(nccl_mesh):
+        got, cache = model.prefill(batch)
+        got_dec, _ = model.decode_step(cache, token)
+    assert wkv6.wkv6.launches - before == cfg.n_layers
+    assert isinstance(got, DTensor) and isinstance(
+        cache["layers"]["state"], DTensor)
+    for g, w in ((got, want), (got_dec, want_dec)):
+        torch.testing.assert_close(g.full_tensor(), w, rtol=1e-6,
+                                   atol=1e-6 * float(w.abs().max()))
+
+
+@pytest.mark.parametrize("arch", ["glm4-9b", "mixtral-8x7b", "hymba-1.5b",
+                                  "seamless-m4t-large-v2", "llava-next-34b"])
+def test_family_forward_under_the_mesh_matches_unsharded(cuda, nccl_mesh,
+                                                         arch):
+    """Each family's smoke model distributed over the NCCL mesh on the
+    card: its forward equals the unsharded forward's (1e-6 of
+    max|logit|)."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs import get_arch, make_inputs
+    from repro_torch.models import Model
+    from repro_torch.sharding import ShardingRules, distribute_state_dict
+    from repro_torch.sharding.context import use_activation_sharding
+    cfg = get_arch(arch, smoke=True)
+    model = Model(cfg, device=cuda).init(
+        torch.Generator(device=cuda).manual_seed(0))
+    batch = make_inputs(cfg, batch=2, seq=12 + cfg.n_prefix, kind="train")
+    with torch.no_grad():
+        want, _ = model(batch)
+        distribute_state_dict(model, ShardingRules(nccl_mesh))
+        with use_activation_sharding(nccl_mesh):
+            got, _ = model(batch)
+    assert isinstance(got, DTensor)
+    torch.testing.assert_close(got.full_tensor(), want, rtol=1e-6,
+                               atol=1e-6 * float(want.abs().max()))

@@ -55,6 +55,11 @@ OBS = ("repro_torch.obs", "repro_torch.obs.registry", "repro_torch.obs.trace",
        "repro_torch.obs.audit", "repro_torch.obs.telemetry",
        "repro_torch.obs.report")
 
+#: Meshes, the placement cost model and the auto-sharder.
+SHARDING = ("repro_torch.launch.mesh", "repro_torch.launch.cosched",
+            "repro_torch.sharding", "repro_torch.sharding.auto",
+            "repro_torch.sharding.context")
+
 
 def _env():
     env = dict(os.environ)
@@ -71,6 +76,7 @@ def test_every_module_imports_with_jax_blocked():
     assert set(COSCHED) <= set(names.split())
     assert set(ELASTIC_FEDERATION_TUNING) <= set(names.split())
     assert set(OBS) <= set(names.split())
+    assert set(SHARDING) <= set(names.split())
 
 
 def _imports(path):
