@@ -4,8 +4,9 @@
 Drives the port's main paths on one CUDA card — the scheduling cycle
 (with cluster dynamics, tidal autoscaling, cycle pipelining, elastic
 training, federation, self-tuning and the telemetry layer), the
-serving fabric, the placement cost model, rwkv6-3b served under a
-device mesh, rwkv6-3b, glm4-9b, mixtral-8x7b (8 of 32 layers), hymba-1.5b,
+serving fabric, the dry-run and its cost model against the card, the
+placement cost model, rwkv6-3b served under a device mesh, rwkv6-3b,
+glm4-9b, mixtral-8x7b (8 of 32 layers), hymba-1.5b,
 seamless-m4t-large-v2 and llava-next-34b (16 of 60 layers) serving, and
 rwkv6-3b training — and holds every kernel of those paths against its
 plain torch version::
@@ -137,6 +138,27 @@ Phases, each printed as one JSON line on stdout:
              feeds ``demand_service`` into a ``TidalAutoscaler`` over
              8,000 GPUs for the trace's span, on the card and with numpy:
              placements identical, the fleet reaches the peak target;
+9c'. dryrun — the port's dry-run (``launch/dryrun.py``).  (a) Its CLI
+             in three subprocesses on the host, started before phase 7:
+             every family's ``decode_32k`` × 16×16, glm4-9b and rwkv6-3b
+             ``train_4k`` × 16×16, rwkv6-3b ``train_4k`` × 2×16×16 over a
+             fake process group; each combo succeeds with positive terms,
+             a positive useful-FLOPs ratio and the port's model FLOPs, one
+             line each (``dryrun-combo``); glm4-9b × ``decode_32k``
+             analysed twice in this process counts what its subprocess
+             counted; the subset's walls beside the 180 s budget.  (b)
+             Calibration: each program analysed at one rank (a (1, 1)
+             mesh of a one-rank fake group), then run on the card from
+             seed-0 bf16 weights: glm4-9b FULL decode (B=4, a 1,024-slot
+             cache), its bound max(compute, memory) at most the device
+             busy ms (median of 20), its argument bytes those the card
+             holds, the counted peak beside the card's; rwkv6-3b FULL
+             prefill (B=4, 512 tokens, the WKV kernel: 32 launches), the
+             same bytes gate, its terms, device ms and the scan's share
+             of the counted bytes reported.  (c) ``estimate.
+             spec_from_artifacts`` over (a)'s two rwkv6-3b train
+             artifacts: the 256- and 512-GPU plans; ``cosched`` (a)
+             below prices each §5.1 job with (a)'s glm4-9b train terms;
 9c. cosched — a Kant placement becomes a job mesh and a placement-aware
              step time (``launch/cosched.py``, the H100 ``ICI_BW``), and a
              model runs under a device mesh.  (a) The main phase's
@@ -147,7 +169,9 @@ Phases, each printed as one JSON line on stdout:
              (terms compute 1, memory 1, collective 2), card equal to
              numpy per job; means by strategy and by job size printed;
              gated: E-Binpack's mean NodeNetGroup deviation <= Spread's
-             (the paper's §5.1.3 claim).  The reference's own assert,
+             (the paper's §5.1.3 claim).  The same jobs priced with the
+             dry-run's glm4-9b × ``train_4k`` × 16×16 terms, card equal
+             to numpy per job, their means reported (not ordered).  The reference's own assert,
              E-Binpack's mean step time <= Spread's, gated on its own
              scenario (``tests/test_integration.py:56``), card equal to
              numpy.  (b) A world-size-1 NCCL group from a ``FileStore``
@@ -257,6 +281,7 @@ import math
 import os
 import subprocess
 import sys
+import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -378,6 +403,22 @@ FABRIC_GPUS_PER_REPLICA, FABRIC_MAX_REPLICAS = 8, 60
 # The cosched phase: tests/test_integration.py:56's roofline terms (the
 # collective term at full ICI rate), and its rwkv6-3b parity gates.
 COSCHED_TERMS = {"compute": 1.0, "memory": 1.0, "collective": 2.0}
+# Phase 9c's dry-run subset (a): (archs, shape, multi-pod), one CLI
+# process each, started together before the WKV phases.
+DRYRUN_SUBSET = (
+    (("glm4-9b", "mixtral-8x7b", "hymba-1.5b", "seamless-m4t-large-v2",
+      "llava-next-34b", "rwkv6-3b"), "decode_32k", False),
+    (("glm4-9b", "rwkv6-3b"), "train_4k", False),
+    (("rwkv6-3b",), "train_4k", True),
+)
+DRYRUN_BUDGET_S = 180.0           # host s for the subset (reported)
+DRYRUN_REPEAT = ("glm4-9b", "decode_32k")   # analysed twice in-process
+DRYRUN_COSCHED = ("glm4-9b", "train_4k", "16x16")   # terms for (c)
+DRYRUN_ELASTIC = ("rwkv6-3b", "train_4k")   # 256- and 512-chip plans
+CALIB_DENSE = ("glm4-9b", 4, 1024)  # decode: arch, B, cache window
+CALIB_SSM = ("rwkv6-3b", 4, 512)    # prefill: arch, B, prompt tokens
+CALIB_STEPS = 20                    # profiled steps, median device busy
+CALIB_SSM_STEPS = 5
 COSCHED_LOGIT_TOL = 1e-5        # of max|logit|, sharded against unsharded
 COSCHED_TRAIN_RTOL = 1e-5       # loss and grad norm, sharded against not
 RWKV_PARAMS = 3_073_067_520
@@ -2722,10 +2763,10 @@ def run_obs(core, np, torch, obs, node_score, rsch_mod, run_51, main: dict,
     return out
 
 
-def cosched_estimates(cosched, topo, jobs) -> list:
+def cosched_estimates(cosched, topo, jobs, terms=COSCHED_TERMS) -> list:
     """(uid, GPUs, placement quality, effective collective bandwidth,
     estimated step time) of every placed job of at least 16 GPUs, with
-    the terms of ``tests/test_integration.py:56``."""
+    ``terms`` (by default those of ``tests/test_integration.py:56``)."""
     out = []
     for j in sorted(jobs, key=lambda j: j.uid):
         if j.placement is None or j.n_gpus < 16:
@@ -2733,16 +2774,17 @@ def cosched_estimates(cosched, topo, jobs) -> list:
         q = cosched.placement_quality(j.placement, topo, j.n_gpus)
         out.append((j.uid, j.n_gpus, dataclasses.asdict(q),
                     cosched.effective_collective_bw(q),
-                    cosched.estimated_step_time(COSCHED_TERMS, q)))
+                    cosched.estimated_step_time(terms, q)))
     return out
 
 
-def cosched_summary(cosched, np, topo, card, host, what: str) -> dict:
+def cosched_summary(cosched, np, topo, card, host, what: str,
+                    terms=COSCHED_TERMS) -> dict:
     """The perf model over a card run's and a host numpy run's placed
     jobs: every job's values equal on both, and their means (by job
     size too)."""
-    est = cosched_estimates(cosched, topo, card.jobs)
-    check(est == cosched_estimates(cosched, topo, host.jobs),
+    est = cosched_estimates(cosched, topo, card.jobs, terms)
+    check(est == cosched_estimates(cosched, topo, host.jobs, terms),
           f"{what}: the card's estimates differ from numpy's")
     check(len(est) > 0, f"{what}: no placed job of >= 16 GPUs")
     by_size = {}
@@ -2836,7 +2878,7 @@ def closed_loop_step(torch, core, cosched, mesh_mod, dev) -> dict:
 
 
 def run_cosched(torch, np, core, node_score, wkv6, run_51, main: dict, dev,
-                smi: str, smoke: bool = False) -> dict:
+                smi: str, smoke: bool = False, dry=None) -> dict:
     """Phase 9c: a Kant placement becomes a mesh and a step time
     (``launch/cosched.py``), and a model runs under a mesh.  (a) The
     §5.1 E-Binpack run (``main``'s, card and host numpy) beside a Spread
@@ -2849,7 +2891,11 @@ def run_cosched(torch, np, core, node_score, wkv6, run_51, main: dict, dev,
     with ``param_shardings`` and served again under the mesh: tokens
     equal, logits within ``COSCHED_LOGIT_TOL`` of max|logit|, the WKV
     kernel launched on the local streams.  (d) The closed loop.  The
-    group is destroyed at the end of the phase, whatever happens."""
+    group is destroyed at the end of the phase, whatever happens.  With
+    ``dry`` (the dry-run artifacts of ``run_dryrun``), (a) also prices
+    each §5.1 job with the dry-run's ``DRYRUN_COSCHED`` terms, card equal
+    to numpy, the means reported and their order not gated (the
+    reference's §5.1 order does not hold either)."""
     import tempfile
     import torch.distributed as dist
     import repro_torch.models.rwkv6 as rw
@@ -2876,6 +2922,15 @@ def run_cosched(torch, np, core, node_score, wkv6, run_51, main: dict, dev,
           f"{spread_launches}")
     sec51 = {s: cosched_summary(cosched, np, topo, *pair, f"§5.1 {s}")
              for s, pair in runs.items()}
+    sec51_dry = None
+    if dry is not None:
+        art = dry[DRYRUN_COSCHED]
+        terms = {k: art[f"{k}_term_s"]
+                 for k in ("compute", "memory", "collective")}
+        sec51_dry = {"combo": list(DRYRUN_COSCHED), "terms": terms,
+                     **{s: cosched_summary(cosched, np, topo, *pair,
+                                           f"§5.1 {s}, dry-run terms", terms)
+                        for s, pair in runs.items()}}
     del runs, res, host
     # The paper's JTTED claim (§5.1.3): E-Binpack spans fewer NodeNetGroups.
     gd = [sec51[s]["mean_group_dev"] for s in ("E_BINPACK", "SPREAD")]
@@ -2912,6 +2967,7 @@ def run_cosched(torch, np, core, node_score, wkv6, run_51, main: dict, dev,
           f"Spread's {st[1]}")
     out = {"phase": "cosched", "ici_bw": cosched.ICI_BW,
            "terms": COSCHED_TERMS, "sec51": sec51,
+           "sec51_dryrun_terms": sec51_dry,
            "reference_scenario": reference,
            "spread_wall_s_card": wall, "spread_wall_s_host_numpy": host_wall,
            "launches": spread_launches, "card_equals_host": True}
@@ -3004,6 +3060,302 @@ def run_cosched(torch, np, core, node_score, wkv6, run_51, main: dict, dev,
     out.update(phase_wall_s=time.perf_counter() - t_phase, nvidia_smi=smi)
     emit(out)
     return out
+
+
+_DRYRUN_CHILDREN = []
+
+
+def start_dryrun(out_dir: str) -> list:
+    """Phase 9c's subset (a): the port's dry-run CLI in one subprocess per
+    row of ``DRYRUN_SUBSET``, all started together, writing artifacts and
+    logs into ``out_dir``; one thread each."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"),
+               OMP_NUM_THREADS="1")
+    procs = []
+    for archs, shape, multi in DRYRUN_SUBSET:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               ",".join(archs), "--shape", shape, "--out", out_dir]
+        cmd += ["--multi-pod"] if multi else []
+        log = open(os.path.join(out_dir, f"{shape}_{multi:d}.log"), "w")
+        p = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                             env=env, cwd=HERE)
+        _DRYRUN_CHILDREN.append(p)
+        d = {"proc": p, "log": log, "t0": time.perf_counter(),
+             "archs": archs, "shape": shape, "multi_pod": multi}
+        d["waiter"] = threading.Thread(target=_reap, args=(d,), daemon=True)
+        d["waiter"].start()
+        procs.append(d)
+    return procs
+
+
+def _reap(d: dict) -> None:
+    """Wait for one subset process: its end time and its own CPU s."""
+    p = d["proc"]
+    _, status, ru = os.wait4(p.pid, 0)
+    d["t1"] = time.perf_counter()
+    d["cpu_s"] = ru.ru_utime + ru.ru_stime
+    p.returncode = os.waitstatus_to_exitcode(status)
+
+
+def stop_children() -> None:
+    """Kill the dry-run subprocesses still running (their waiter threads
+    reap them)."""
+    for p in _DRYRUN_CHILDREN:
+        if p.returncode is None:
+            p.kill()
+
+
+def join_dryrun(procs) -> list:
+    """Wait for each subset process: exit code, wall s from its start to
+    its end, its own CPU s, and the tail of its log on failure."""
+    out = []
+    for d in procs:
+        d["waiter"].join()
+        d["log"].close()
+        p = d["proc"]
+        row = {"archs": list(d["archs"]), "shape": d["shape"],
+               "multi_pod": d["multi_pod"], "rc": p.returncode,
+               "wall_s": d["t1"] - d["t0"], "cpu_s": d["cpu_s"]}
+        if p.returncode:
+            with open(d["log"].name) as f:
+                row["log_tail"] = f.read()[-3000:]
+        out.append(row)
+    return out
+
+
+DRYRUN_COUNTS = ("flops_per_device", "matmul_flops_per_device",
+                 "bytes_per_device", "collective_bytes_per_device",
+                 "collectives", "raw_cost_analysis", "memory_analysis")
+
+
+def dryrun_subset(procs, out_dir: str) -> dict:
+    """(a): every subset combo succeeded, with positive terms, a positive
+    useful-FLOPs ratio and ``model_flops_global`` equal to the port's
+    ``model_flops``; one line per combo.  Then the first combo analysed
+    twice in this process (each cold: caches cleared) counts the same,
+    and the same as its subprocess did."""
+    from repro_torch.configs import SHAPES, get_arch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    runs = join_dryrun(procs)
+    for r in runs:
+        check(r["rc"] == 0, f"dry-run {r['archs']} x {r['shape']} "
+              f"(multi-pod {r['multi_pod']}) exited {r['rc']}: "
+              f"{r.get('log_tail', '')}")
+    arts = {}
+    for archs, shape, multi in DRYRUN_SUBSET:
+        mesh = "2x16x16" if multi else "16x16"
+        for a in archs:
+            path = os.path.join(out_dir, f"{a}__{shape}__{mesh}__baseline"
+                                ".json")
+            check(os.path.exists(path), f"no dry-run artifact {path}")
+            with open(path) as f:
+                r = json.load(f)
+            terms = {k: r[f"{k}_term_s"]
+                     for k in ("compute", "memory", "collective")}
+            check(all(v > 0 for v in terms.values())
+                  and r["useful_flops_ratio"] > 0,
+                  f"dry-run {a} x {shape} x {mesh}: terms {terms}, useful "
+                  f"{r['useful_flops_ratio']}")
+            mf = dryrun.model_flops(get_arch(a), SHAPES[shape])
+            check(r["model_flops_global"] == mf,
+                  f"dry-run {a} x {shape}: model FLOPs "
+                  f"{r['model_flops_global']} against {mf}")
+            emit({"phase": "dryrun-combo", "arch": a, "shape": shape,
+                  "mesh": mesh, "terms_s": terms,
+                  "dominant": r["dominant_term"],
+                  "collectives": r["collectives"], "trace_s": r["trace_s"],
+                  "lower_s": r["lower_s"],
+                  "useful_flops_ratio": r["useful_flops_ratio"],
+                  "matmul_flops_per_device": r["matmul_flops_per_device"],
+                  "memory_analysis": r["memory_analysis"]})
+            arts[(a, shape, mesh)] = r
+    arch, shape_name = DRYRUN_REPEAT
+    cfg, shape = get_arch(arch), SHAPES[shape_name]
+    with dryrun.fake_group(256):
+        mesh = make_production_mesh(device="cpu")
+        dryrun.clear_caches()
+        low = dryrun.lower_combo(cfg, shape, mesh)
+        first = dryrun.analyse(low, cfg, shape, 256)
+        dryrun.clear_caches()
+        second = dryrun.analyse(low, cfg, shape, 256)
+    sub = arts[(arch, shape_name, "16x16")]
+    for key in DRYRUN_COUNTS:
+        check(first[key] == second[key] == sub[key],
+              f"dry-run {arch} x {shape_name}: {key} {first[key]}, again "
+              f"{second[key]}, in its subprocess {sub[key]}")
+    wall = max(r["wall_s"] for r in runs)
+    return {"runs": runs, "artifacts": arts,
+            "subset_wall_s": wall,
+            "subset_cpu_s": sum(r["cpu_s"] for r in runs),
+            "budget_s": DRYRUN_BUDGET_S,
+            "within_budget": wall <= DRYRUN_BUDGET_S,
+            "repeat": {"combo": [arch, shape_name, "16x16"],
+                       "trace_s": [first["trace_s"], second["trace_s"]],
+                       "counts_equal": True}}
+
+
+def one_rank_analysis(dryrun, cfg, shape, sites: bool = False):
+    """The dry-run of one program at one rank, through the same code path
+    as the sweep: a (1, 1) mesh over a one-rank fake group.  With
+    ``sites``, also the counter of a second, labelled run."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.launch.op_analysis import OpCounter
+    with dryrun.fake_group(1):
+        mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data",
+                                                               "model"))
+        low = dryrun.lower_combo(cfg, shape, mesh)
+        art = dryrun.analyse(low, cfg, shape, 1)
+        counter = None
+        if sites:
+            with OpCounter(sites=True, device="meta") as counter:
+                low.run()
+    return art, counter
+
+
+def held_bytes(*trees) -> int:
+    """Bytes of the tensors in ``trees`` (nested dicts or tensors)."""
+    return sum(t.numel() * t.element_size() for tree in trees
+               for t in (flat_leaves(tree) if isinstance(tree, dict)
+                         else (tree,)))
+
+
+def busy_ms(torch, fn, n: int) -> list:
+    """Device ms (kernels and copies) of ``fn()``, each from its own
+    CUDA-only trace, ``n`` times after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(n):
+        t = device_totals(torch, fn)
+        out.append(t["kernel_ms"] + t["copy_ms"])
+    return out
+
+
+def calibrate(torch, np, dev, wkv6, smoke: bool = False) -> dict:
+    """(b): the dry-run's terms and bytes at one rank against the card
+    running the same program from seeded bf16 weights.  glm4-9b decode
+    (B=4, a 1,024-slot cache): the bound max(compute, memory) at most the
+    device busy time (median of ``CALIB_STEPS``), the argument bytes
+    equal to what the card holds.  rwkv6-3b prefill (B=4, 512 tokens)
+    with the WKV kernel: 32 launches, the same bytes gate; its terms and
+    device time reported, with the scan's share of the counted bytes (the
+    dry-run counts the reference's scan route)."""
+    from repro_torch.configs import InputShape, get_arch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.op_analysis import top_contributors
+    from repro_torch.models import Model
+    out = {}
+    arch, B, W = CALIB_DENSE
+    cfg = get_arch(arch, smoke=smoke)
+    shape = InputShape(f"decode_{W}", W, B, "decode")
+    art, _ = one_rank_analysis(dryrun, cfg, shape)
+    model = Model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(0), torch.bfloat16)
+    cache = model.init_cache(B, W, dtype=torch.bfloat16)
+    token = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, B).astype(np.int32), device=dev)
+    held = held_bytes(dict(model.named_parameters()), cache, token)
+    args = art["memory_analysis"]["argument_size_in_bytes"]
+    check(args == held, f"{arch} decode: the dry-run's argument bytes "
+          f"{args}, the card holds {held}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    logits, _ = model.decode_step(cache, token)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    check(tuple(logits.shape) == (B, cfg.vocab)
+          and bool(torch.isfinite(logits).all()),
+          f"{arch} decode logits {tuple(logits.shape)} not finite")
+    busy = busy_ms(torch, lambda: model.decode_step(cache, token),
+                   CALIB_STEPS)
+    bound = max(art["compute_term_s"], art["memory_term_s"]) * 1e3
+    check(bound <= median(busy), f"{arch} decode: the dry-run's bound "
+          f"{bound} ms is above the card's busy {median(busy)} ms")
+    out["dense"] = {
+        "arch": cfg.name, "batch": B, "cache": W, "dtype": "bfloat16",
+        "terms_s": {k: art[f"{k}_term_s"]
+                    for k in ("compute", "memory", "collective")},
+        "bound_ms": bound, "device_busy_ms": median(busy),
+        "device_busy_ms_all": busy, "busy_over_bound": median(busy) / bound,
+        "argument_bytes": args, "held_bytes": held,
+        "temp_size_in_bytes": art["memory_analysis"]["temp_size_in_bytes"],
+        "output_size_in_bytes":
+            art["memory_analysis"]["output_size_in_bytes"],
+        "max_memory_allocated_minus_arguments": peak - held,
+        "max_memory_allocated_minus_before": peak - base,
+        "bytes_per_device": art["bytes_per_device"],
+        "flops_per_device": art["flops_per_device"],
+        "trace_s": art["trace_s"]}
+    del model, cache, logits
+    free_memory(torch)
+
+    arch, B, S = CALIB_SSM
+    cfg = get_arch(arch, smoke=smoke)
+    shape = InputShape(f"prefill_{S}", S, B, "prefill")
+    art, counter = one_rank_analysis(dryrun, cfg, shape, sites=True)
+    scan = sum(c.bytes for (_, _, site), c in counter.rows.items()
+               if site.startswith("kernels/ref.py:wkv6_ref"))
+    model = Model(cfg, device=dev, wkv_backend="kernel").init(
+        torch.Generator(device=dev).manual_seed(0), torch.bfloat16)
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (B, S)).astype(np.int32), device=dev)
+    held = held_bytes(dict(model.named_parameters()), tokens)
+    args = art["memory_analysis"]["argument_size_in_bytes"]
+    check(args == held, f"{arch} prefill: the dry-run's argument bytes "
+          f"{args}, the card holds {held}")
+    wkv6.wkv6.launches = 0
+    logits, _ = model.prefill({"tokens": tokens}, seq_len=S)
+    torch.cuda.synchronize()
+    launches = wkv6.wkv6.launches
+    check(launches == cfg.n_layers, f"{arch} prefill launched the WKV "
+          f"kernel {launches} times for {cfg.n_layers} layers")
+    check(bool(torch.isfinite(logits).all()), f"{arch} prefill logits "
+          f"not finite")
+    busy = busy_ms(torch, lambda: model.prefill({"tokens": tokens},
+                                                seq_len=S), CALIB_SSM_STEPS)
+    bound = max(art["compute_term_s"], art["memory_term_s"]) * 1e3
+    out["ssm"] = {
+        "arch": cfg.name, "batch": B, "tokens": S, "dtype": "bfloat16",
+        "wkv_backend": "kernel", "wkv6_launches": launches,
+        "terms_s": {k: art[f"{k}_term_s"]
+                    for k in ("compute", "memory", "collective")},
+        "bound_ms": bound, "device_busy_ms": median(busy),
+        "device_busy_ms_all": busy, "busy_over_bound": median(busy) / bound,
+        "argument_bytes": args, "held_bytes": held,
+        "scan_bytes_share": scan / counter.cost.bytes,
+        "top_bytes": [list(r) for r in top_contributors(counter, "bytes",
+                                                        5)],
+        "trace_s": art["trace_s"]}
+    del model, logits
+    free_memory(torch)
+    return out
+
+
+def run_dryrun(torch, np, dev, wkv6, procs, out_dir: str, smi: str,
+               smoke: bool = False) -> dict:
+    """Phase 9c': the dry-run's subset (a), checked and printed; the
+    calibration (b) on the card; the elastic plans from (a)'s two rwkv6-3b
+    train artifacts (c).  Returns the artifacts for ``run_cosched``."""
+    from repro_torch.core.elastic import estimate
+    t0 = time.perf_counter()
+    calib = calibrate(torch, np, dev, wkv6, smoke=smoke)
+    sub = dryrun_subset(procs, out_dir)
+    arts = sub.pop("artifacts")
+    arch, shape = DRYRUN_ELASTIC
+    spec = estimate.spec_from_artifacts(
+        [arts[(arch, shape, m)] for m in ("16x16", "2x16x16")])
+    plans = [{"n_gpus": p.n_gpus, "n_pods": p.n_pods,
+              "gpus_per_pod": p.gpus_per_pod, "throughput": p.throughput,
+              "step_s": 1.0 / p.throughput, "name": p.name}
+             for p in spec.plans]
+    check([p["n_gpus"] for p in plans] == [256, 512],
+          f"the elastic spec's plans: {plans}")
+    emit({"phase": "dryrun", **sub, "calibration": calib,
+          "elastic_spec": {"arch": arch, "shape": shape, "plans": plans},
+          "phase_wall_s": time.perf_counter() - t0, "nvidia_smi": smi})
+    return arts
 
 
 def flat_leaves(tree):
@@ -3534,6 +3886,14 @@ def main() -> int:
                       {"res": res_gpu, "wall_cuda": wall_gpu,
                        "wall_np": wall_np, "launches": main_launches})
 
+    # -- 9c' (a), started here: the dry-run subset on the host, beside
+    # the device-timed WKV phases; joined before cosched -----------------
+    import atexit
+    import tempfile
+    dry_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    atexit.register(stop_children)
+    dry_procs = start_dryrun(dry_dir)
+
     # -- 7. wkv-sweep: the WKV kernel against its plain version ---------
     f32, bf16 = torch.float32, torch.bfloat16
     wkv_types = {"f32": (f32,) * 4, "bf16": (bf16,) * 4,
@@ -3768,9 +4128,14 @@ def main() -> int:
     fabric = run_fabric(torch, np, dev, counters, smi)
     free_memory(torch)
 
+    # -- 9c'. dryrun: the subset, the calibration, the elastic plans ----
+    dry = run_dryrun(torch, np, dev, wkv6, dry_procs, dry_dir, smi)
+    free_memory(torch)
+
     # -- 9c. cosched: placements to step times; rwkv6-3b under a mesh ----
     cosched_out = run_cosched(torch, np, core, node_score, wkv6, run_51,
-                              {"res": res_gpu, "res_np": res_np}, dev, smi)
+                              {"res": res_gpu, "res_np": res_np}, dev, smi,
+                              dry=dry)
     free_memory(torch)
 
     # -- 10-12. glm4-9b at full width: serve, breakdown, parity ---------

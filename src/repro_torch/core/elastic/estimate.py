@@ -7,10 +7,9 @@ terms over the *partitioned per-device* program:
 * ``memory_term_s``     — bytes_per_device / memory bandwidth
 * ``collective_term_s`` — collective bytes_per_device / link bandwidth
 
-The dry-run that produces these artifacts is not yet ported to this
-package (its meshes and sharding rules are: ``launch/mesh.py``,
-``sharding/``); :func:`scaling_artifacts` stands in for it, as it does
-in the reference whenever no sweep exists.
+:mod:`repro_torch.launch.dryrun` writes them
+(``experiments/dryrun/*.json``); :func:`scaling_artifacts` stands in
+whenever no sweep exists, as it does in the reference.
 
 This module turns those artifacts into :class:`ParallelismPlan`s: the
 roofline step-time estimate overlaps compute with memory traffic

@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from ..device import NEG_INF
+from ..launch.op_analysis import trip_range
 
 
 def node_scores_ref(free: torch.Tensor, used: torch.Tensor,
@@ -81,16 +82,20 @@ def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     f32), with ``o_t = einsum(r_t, S + u·k_tᵀv_t)`` in that order and
     ``S <- w_t[:, None]·S + k_tᵀv_t``.  Runs on the inputs' device; the
     CUDA kernel in :mod:`repro_torch.kernels.wkv6` is held against it.
+    Under the dry-run's op counter on meta tensors the loop runs one
+    step, counted T times (:func:`~repro_torch.launch.op_analysis.
+    trip_range`).
     """
     r, k, v, w = (t.to(torch.float32) for t in (r, k, v, w))
     u = u.to(torch.float32)[None, :, :, None]
     S = s0.to(torch.float32)
     outs = []
-    for t in range(r.shape[1]):
+    steps = trip_range(r.shape[1], r)
+    for t in steps:
         kv = k[:, t, :, :, None] * v[:, t, :, None, :]    # (B, H, n, n)
         outs.append(torch.einsum("bhn,bhnm->bhm", r[:, t], S + u * kv))
         S = w[:, t, :, :, None] * S + kv
-    return torch.stack(outs, dim=1), S
+    return torch.stack(steps.full(outs), dim=1), S
 
 
 def wkv6_chunked_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -3,10 +3,10 @@
 The dry-run pipeline lowers and analyses the same (architecture, input
 shape, mesh) combo over and over when a job's candidate parallelism
 plans are enumerated — re-lowering an identical combo is pure waste.
-:class:`ComboCache` is the shared memo: the dry-run keys its lowering
-and analysis results on the combo tuple (the dry-run is not yet ported
-to this package), and :mod:`repro_torch.core.elastic.estimate` keys
-derived plan tables the same way.
+:class:`ComboCache` is the shared memo: :mod:`repro_torch.launch.dryrun`
+keys its lowering and analysis results on the combo tuple, and
+:mod:`repro_torch.core.elastic.estimate` keys derived plan tables the
+same way.
 
 This module imports nothing heavy, so the elastic scheduler, its tests
 and its benchmark exercise the cache through here without ever
@@ -110,3 +110,9 @@ class ComboCache:
         self._data.clear()
         self.hits = 0
         self.misses = 0
+
+    def evict(self) -> list:
+        """Remove every entry and return them; the counters stay."""
+        values = list(self._data.values())
+        self._data.clear()
+        return values

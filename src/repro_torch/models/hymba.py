@@ -28,7 +28,8 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..sharding.context import constrain
+from ..launch.op_analysis import trip_range
+from ..sharding.context import constrain, local_einsum
 from .layers import Params, dense_init, init_attn, spec_attn
 
 DT_RANK = 32
@@ -86,17 +87,26 @@ def selective_scan(u: torch.Tensor, dt: torch.Tensor, B_t: torch.Tensor,
     u, dt, B_t, C_t = (a.transpose(0, 1).to(torch.float32)
                        for a in (u, dt, B_t, C_t))
     h = h.to(torch.float32)
-    ys = []
-    for t0 in range(0, T, SCAN_CHUNK):
+
+    def chunk(t0: int) -> torch.Tensor:
+        nonlocal h
         sl = slice(t0, t0 + SCAN_CHUNK)
         decay = torch.exp(dt[sl, ..., None] * A)            # (c,B,d,N)
         inp = (dt[sl] * u[sl])[..., None] * B_t[sl, :, None, :]
         steps = []
-        for i in range(decay.shape[0]):
+        trips = trip_range(decay.shape[0], decay)
+        for i in trips:
             h = torch.addcmul(inp[i], decay[i], h)
             steps.append(h)
-        hs = torch.stack(steps)
-        ys.append(torch.einsum("tbdn,tbn->tbd", hs, C_t[sl]))
+        hs = torch.stack(trips.full(steps))
+        return local_einsum("tbdn,tbn->tbd", hs, C_t[sl])
+
+    # The full chunks, then the ragged last one: the dry-run's op counter
+    # runs one full chunk for all (trip_range); otherwise every chunk.
+    full = trip_range(T // SCAN_CHUNK, u)
+    ys = full.full([chunk(c * SCAN_CHUNK) for c in full])
+    if T % SCAN_CHUNK:
+        ys.append(chunk(T - T % SCAN_CHUNK))
     return torch.cat(ys).transpose(0, 1), h
 
 
@@ -119,7 +129,7 @@ def ssm_step(p: Params, x: torch.Tensor, h: torch.Tensor
     b1, c1 = B_t[:, 0].to(torch.float32), C_t[:, 0].to(torch.float32)
     decay = torch.exp(dt1[..., None] * A[None])
     h = decay * h.to(torch.float32) + (dt1 * u1)[..., None] * b1[:, None]
-    y = torch.einsum("bdn,bn->bd", h, c1)[:, None, :].to(x.dtype)
+    y = local_einsum("bdn,bn->bd", h, c1)[:, None, :].to(x.dtype)
     y = y + u * p["d_skip"]
     return y @ p["w_out"], h
 

@@ -26,8 +26,12 @@ import math
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-from ..sharding.context import axis_size, constrain
+from ..launch.op_analysis import trip_range
+from ..sharding.context import (axis_size, constrain, contiguous_grad,
+                                flattenable, local_einsum, local_range,
+                                splittable)
 
 Params = Dict[str, torch.Tensor]
 
@@ -78,15 +82,61 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5
 def embed(table: torch.Tensor, tokens) -> torch.Tensor:
     """Rows of ``table`` at ``tokens``, with ``jnp.take``'s semantics:
     an index in [-V, 0) counts from the end, and one outside [-V, V)
-    gives a row of NaN (it never raises and never reads out of range)."""
+    gives a row of NaN (it never raises and never reads out of range).
+    A sharded DTensor table is read by :func:`_embed_sharded`."""
     V = table.shape[0]
-    idx = torch.as_tensor(tokens, device=table.device).long()
+    idx = torch.as_tensor(tokens, device=table.device)
+    if isinstance(table, DTensor) and any(
+            type(p) is Shard for p in table.placements + getattr(
+                idx, "placements", ())):
+        return _embed_sharded(table, idx)
+    idx = idx.long()
     idx = torch.where(idx < 0, idx + V, idx)
     ok = (idx >= 0) & (idx < V)
     rows = table[idx.clamp(0, V - 1)]
     return torch.where(ok[..., None], rows,
                        torch.full((), float("nan"), dtype=table.dtype,
                                   device=table.device))
+
+
+def _embed_sharded(table: DTensor, idx: torch.Tensor) -> DTensor:
+    """:func:`embed` from each rank's shards, without DTensor's gather
+    rules (torch 2.11 refuses an index sharded on two mesh dims and the
+    gradient of a sharded one).  A mesh dim that shards both the indices
+    and the table gathers the table there (FSDP); a vocab shard gives
+    its own rows and zeros elsewhere (a partial sum); a shard of d or of
+    the indices is kept."""
+    mesh = table.device_mesh
+    if not isinstance(idx, DTensor):
+        idx = DTensor.from_local(idx, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+    V = table.shape[0]
+    t_pl, out_pl = list(table.placements), []
+    for m, (tp, ip) in enumerate(zip(table.placements, idx.placements)):
+        if type(ip) is Shard:
+            t_pl[m] = Replicate()
+            out_pl.append(ip)
+        elif type(tp) is Shard:
+            out_pl.append(Partial() if tp.dim == 0 else Shard(idx.ndim))
+        else:
+            out_pl.append(Replicate())
+    table = table.redistribute(mesh, t_pl)
+    rows = local_range(mesh, t_pl, 0, V)
+    i = idx.to_local().long()
+    i = torch.where(i < 0, i + V, i)
+    ok = (i >= 0) & (i < V)
+    mine = (i >= rows.start) & (i < rows.stop)
+    local = table.to_local()
+    got = local[(i - rows.start).clamp(0, max(local.shape[0] - 1, 0))]
+    got = contiguous_grad(got)
+    got = torch.where(mine[..., None], got, torch.zeros(
+        (), dtype=got.dtype, device=got.device))
+    got = torch.where(ok[..., None], got, torch.full(
+        (), float("nan"), dtype=got.dtype, device=got.device))
+    shape = (*idx.shape, table.shape[1])
+    return DTensor.from_local(got, mesh, out_pl, run_check=False,
+                              shape=shape,
+                              stride=torch.empty(shape, device="meta").stride())
 
 
 # ---------------------------------------------------------------------------
@@ -143,8 +193,12 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     hspec = ("batch", None, "model") if head_sharded \
         else ("batch", "model", None)
     hspec4 = hspec + (None,)
+    # Every kv chunk is computed and then masked, so each iteration
+    # dispatches the same ops: the dry-run's op counter runs one of each
+    # loop for all (trip_range).
     outs = []
-    for qi in range(Sq_p // q_chunk):
+    q_trips = trip_range(Sq_p // q_chunk, q)
+    for qi in q_trips:
         qb = constrain(q[:, qi * q_chunk:(qi + 1) * q_chunk], hspec4
                        ).to(torch.float32)
         q_pos = q_offset + qi * q_chunk + torch.arange(q_chunk, device=dev)
@@ -154,7 +208,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                  dtype=torch.float32, device=dev), hspec)
         l = constrain(torch.zeros((B, q_chunk, H), dtype=torch.float32,
                                   device=dev), hspec)
-        for ki in range(Sk_p // kv_chunk):
+        for ki in trip_range(Sk_p // kv_chunk, q):
             sl = slice(ki * kv_chunk, (ki + 1) * kv_chunk)
             # GQA: broadcast Kh -> H (head h uses kv head h // G).
             kb = constrain(k[:, sl].repeat_interleave(G, dim=2),
@@ -167,18 +221,18 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 mask = mask & (kv_idx[None, :] <= q_pos[:, None])
             if window > 0:
                 mask = mask & (kv_idx[None, :] > q_pos[:, None] - window)
-            s = torch.einsum("bthd,bshd->bths", qb, kb) * scale
+            s = local_einsum("bthd,bshd->bths", qb, kb) * scale
             s = torch.where(mask[None, :, None, :], s, NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1))
             p = torch.exp(s - m_new[..., None])
             alpha = torch.exp(m - m_new)
             l = l * alpha + p.sum(dim=-1)
-            acc = acc * alpha[..., None] + torch.einsum("bths,bshd->bthd",
+            acc = acc * alpha[..., None] + local_einsum("bths,bshd->bthd",
                                                         p, vb)
             m = m_new
         out = acc / torch.clamp(l[..., None], min=1e-30)
         outs.append(out.to(q.dtype))
-    return torch.cat(outs, dim=1)[:, :Sq]
+    return torch.cat(q_trips.full(outs), dim=1)[:, :Sq]
 
 
 # ---------------------------------------------------------------------------
@@ -236,12 +290,16 @@ def spec_attn(d_model: int, n_heads: int, n_kv: int, head_dim: int
 
 def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum("bsd,dhk->bshk", x, w) as one matmul."""
-    return (x @ w.reshape(w.shape[0], -1)).unflatten(-1, w.shape[1:])
+    h = w.shape[1]
+    w2 = splittable(w.reshape(w.shape[0], -1), -1, h)
+    return splittable(x @ w2, -1, h).unflatten(-1, w.shape[1:])
 
 
 def _out(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """einsum("bshk,hkd->bsd", o, wo) as one matmul."""
-    return o.flatten(-2) @ wo.reshape(-1, wo.shape[-1])
+    h = o.shape[-2]
+    return (splittable(flattenable(o, -2, -1).flatten(-2), -1, h)
+            @ splittable(wo.reshape(-1, wo.shape[-1]), 0, h))
 
 
 def _qkv(p: Params, x: torch.Tensor, positions, theta: float):
@@ -297,7 +355,10 @@ def ring_from_prefill(kv: torch.Tensor, W: int) -> torch.Tensor:
     if S <= W:
         return pad_axis(kv, 1, W)
     # Position S-W+j goes to slot (S-W+j) mod W; the roll does that.
-    return torch.roll(kv[:, S - W:], shifts=(S - W) % W, dims=1)
+    tail, r = kv[:, S - W:], (S - W) % W
+    if isinstance(kv, DTensor):           # torch 2.11 has no DTensor roll
+        return torch.cat([tail[:, W - r:], tail[:, :W - r]], dim=1)
+    return torch.roll(tail, shifts=r, dims=1)
 
 
 def decode_attention(p: Params, x: torch.Tensor, k_cache: torch.Tensor,
@@ -335,11 +396,12 @@ def decode_attention(p: Params, x: torch.Tensor, k_cache: torch.Tensor,
         valid = valid & (abs_pos > cl[:, None] - window)
     Kh = k_cache.shape[2]
     G = q.shape[2] // Kh
-    qf = q.reshape(B, 1, Kh, G, hd).to(torch.float32)
-    s = torch.einsum("btkgh,bskh->btkgs", qf,
+    qf = splittable(q, 2, Kh).reshape(B, 1, Kh, G, hd).to(torch.float32)
+    s = local_einsum("btkgh,bskh->btkgs", qf,
                      k_cache.to(torch.float32)) / math.sqrt(hd)
     s = torch.where(valid[:, None, None, None, :], s, NEG_INF)
     w = torch.softmax(s, dim=-1)
-    o = torch.einsum("btkgs,bskh->btkgh", w,
+    o = local_einsum("btkgs,bskh->btkgh", w,
                      v_cache.to(torch.float32)).to(x.dtype)
-    return _out(o.reshape(B, 1, q.shape[2], hd), p["wo"]), k_cache, v_cache
+    return (_out(flattenable(o, 2, 3).reshape(B, 1, q.shape[2], hd),
+                 p["wo"]), k_cache, v_cache)

@@ -33,7 +33,8 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..kernels import ops
-from ..sharding.context import constrain
+from ..sharding.context import (constrain, local_einsum, local_range,
+                                splittable)
 from .layers import Params, dense_init
 
 DECAY_LORA = 64
@@ -115,8 +116,8 @@ def _streams(p: Params, x: torch.Tensor, x_prev: torch.Tensor):
     w = torch.exp(-torch.exp(p["decay_base"].to(torch.float32).reshape(-1)
                              + dd.to(torch.float32)))    # (B,T,d) in (0,1)
     shp = (B, T, H, hd)
-    return (r.reshape(shp), k.reshape(shp), v.reshape(shp),
-            g, w.reshape(shp))
+    r, k, v, w = (splittable(t, -1, H).reshape(shp) for t in (r, k, v, w))
+    return r, k, v, g, w
 
 
 def time_mix(p: Params, x: torch.Tensor, state: torch.Tensor,
@@ -141,22 +142,9 @@ def time_mix(p: Params, x: torch.Tensor, state: torch.Tensor,
     u = p["bonus_u"].to(torch.float32)
     wkv = _wkv6_local if isinstance(r, DTensor) else ops.wkv6
     o4, state = wkv(r, k, v, w, u, state, backend=_WKV[backend])
-    o = o4.reshape(B, T, d)
+    o = splittable(o4.reshape(B, T, d), -1, o4.shape[2])
     out = (o.to(x.dtype) * g) @ p["wo"]
     return out, state, x[:, -1]
-
-
-def _local_range(mesh, placements, dim: int, size: int) -> slice:
-    """This rank's slice of a tensor dim of ``size`` sharded as
-    ``placements`` (``torch.chunk`` pieces, split in mesh order)."""
-    start, length = 0, size
-    coord = mesh.get_coordinate()
-    for i, q in enumerate(placements):
-        if isinstance(q, Shard) and q.dim == dim:
-            chunk = -(-length // mesh.size(i))
-            lo = min(coord[i] * chunk, length)
-            start, length = start + lo, min(chunk, length - lo)
-    return slice(start, start + length)
 
 
 def _wkv6_local(r, k, v, w, u, state, backend: str):
@@ -171,8 +159,8 @@ def _wkv6_local(r, k, v, w, u, state, backend: str):
                else Replicate() for q in r.placements)
     r, k, v, w = (t.redistribute(mesh, pl) for t in (r, k, v, w))
     B, T, H, n = r.shape
-    rows = _local_range(mesh, pl, 0, B)
-    heads = _local_range(mesh, pl, 2, H)
+    rows = local_range(mesh, pl, 0, B)
+    heads = local_range(mesh, pl, 2, H)
 
     def full(t):
         return t.full_tensor() if isinstance(t, DTensor) else t
@@ -198,7 +186,7 @@ def time_mix_decode(p: Params, x: torch.Tensor, state: torch.Tensor,
     r1, k1, v1, w1 = (t[:, 0].to(torch.float32) for t in (r, k, v, w))
     kv = k1[..., :, None] * v1[..., None, :]
     S = state.to(torch.float32)
-    o = torch.einsum("bhn,bhnm->bhm", r1, S + u[None, :, :, None] * kv)
+    o = local_einsum("bhn,bhnm->bhm", r1, S + u[None, :, :, None] * kv)
     state = w1[..., :, None] * S + kv
     out = (o.reshape(B, 1, d).to(x.dtype) * g) @ p["wo"]
     return out, state, x[:, -1]

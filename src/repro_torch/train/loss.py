@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from ..sharding.context import shard_ways
+
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        ignore_id: int = -1) -> torch.Tensor:
@@ -20,8 +22,17 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     logits = logits.to(torch.float32)
     labels = torch.as_tensor(labels, device=logits.device)
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1,
-                        labels.clamp(min=0).long()[..., None])[..., 0]
+    idx = labels.clamp(min=0).long()
+    if shard_ways(logits, -1) > 1:
+        # Vocab-parallel: DTensor's gather over a sharded dim leaves a
+        # masked partial sum that the select after it cannot reduce;
+        # summing the logits at the label's one-hot position reduces as
+        # an ordinary partial sum.
+        hit = idx[..., None] == torch.arange(logits.shape[-1],
+                                             device=logits.device)
+        gold = torch.sum(logits * hit, dim=-1)
+    else:
+        gold = torch.gather(logits, -1, idx[..., None])[..., 0]
     nll = lse - gold
     mask = (labels != ignore_id).to(torch.float32)
     return torch.sum(nll * mask) / torch.clamp(mask.sum(), min=1.0)

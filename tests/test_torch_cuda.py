@@ -844,3 +844,106 @@ def test_family_forward_under_the_mesh_matches_unsharded(cuda, nccl_mesh,
     assert isinstance(got, DTensor)
     torch.testing.assert_close(got.full_tensor(), want, rtol=1e-6,
                                atol=1e-6 * float(want.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# The dry-run against the card (a 2-layer cut at full width)
+# ---------------------------------------------------------------------------
+def _one_rank_dryrun(cfg, shape):
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.launch import dryrun
+    with dryrun.fake_group(1):
+        mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data",
+                                                               "model"))
+        return dryrun.analyse(dryrun.lower_combo(cfg, shape, mesh), cfg,
+                              shape, 1)
+
+
+def _device_ms(fn, n: int = 5) -> float:
+    """Median over ``n`` runs of the device ms of the kernels and copies
+    ``fn`` launches (a CUDA-only profiler trace each)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(n):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        out.append(sum(e.duration_ns() for e in
+                       prof.profiler.kineto_results.events()
+                       if "CUDA" in str(e.device_type())) / 1e6)
+    return sorted(out)[n // 2]
+
+
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def test_dryrun_bounds_a_glm4_decode_on_the_card(cuda):
+    """glm4-9b at full width, 2 layers, bf16, decode B=4 against a
+    1,024-slot cache: the dry-run's max(compute, memory) term at one rank
+    is at most the card's device time, and its argument bytes are the
+    bytes the card holds."""
+    import dataclasses
+    from repro_torch.configs import InputShape, get_arch
+    from repro_torch.models import Model
+    cfg = dataclasses.replace(get_arch("glm4-9b"), n_layers=2)
+    B, W = 4, 1024
+    art = _one_rank_dryrun(cfg, InputShape("decode_1k", W, B, "decode"))
+    model = Model(cfg, device=cuda).init(
+        torch.Generator(device=cuda).manual_seed(0), torch.bfloat16)
+    cache = model.init_cache(B, W, dtype=torch.bfloat16)
+    token = torch.arange(B, dtype=torch.int32, device=cuda)
+    held = _nbytes(*model.parameters(), cache["layers"]["k"],
+                   cache["layers"]["v"], cache["t"], token)
+    assert art["memory_analysis"]["argument_size_in_bytes"] == held
+    bound = max(art["compute_term_s"], art["memory_term_s"]) * 1e3
+    assert bound <= _device_ms(lambda: model.decode_step(cache, token))
+
+
+def test_dryrun_counts_an_rwkv6_prefill_on_the_card(cuda):
+    """rwkv6-3b at full width, 2 layers, bf16, prefill B=4 of 512 tokens
+    through the WKV kernel: one launch a layer, the dry-run's argument
+    bytes equal to the card's (its terms count the plain scan)."""
+    import dataclasses
+    from repro_torch.configs import InputShape, get_arch
+    from repro_torch.models import Model
+    cfg = dataclasses.replace(get_arch("rwkv6-3b"), n_layers=2)
+    B, S = 4, 512
+    art = _one_rank_dryrun(cfg, InputShape("prefill_512", S, B, "prefill"))
+    model = Model(cfg, device=cuda, wkv_backend="kernel").init(
+        torch.Generator(device=cuda).manual_seed(0), torch.bfloat16)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (B, S)).astype(np.int32)).to(cuda)
+    assert art["memory_analysis"]["argument_size_in_bytes"] == _nbytes(
+        *model.parameters(), tokens)
+    before = wkv6.wkv6.launches
+    logits, _ = model.prefill({"tokens": tokens}, seq_len=S)
+    assert wkv6.wkv6.launches - before == cfg.n_layers
+    assert bool(torch.isfinite(logits).all())
+    assert art["compute_term_s"] > 0 and art["memory_term_s"] > 0
+
+
+@pytest.mark.parametrize("arch", ["glm4-9b", "mixtral-8x7b", "hymba-1.5b",
+                                  "seamless-m4t-large-v2", "llava-next-34b",
+                                  "rwkv6-3b"])
+def test_dryrun_cli_runs_a_decode_combo_on_this_torch(cuda, arch, tmp_path):
+    """The dry-run CLI at 16×16 on this machine's torch (the card's has
+    DTensor rules the host's lacks): one decode combo per family."""
+    import json
+    import os
+    import subprocess
+    import sys
+    env = dict(os.environ, PYTHONPATH=os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", "decode_32k", "--out", str(tmp_path)],
+        env=env, capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-2000:]
+    art = json.loads((tmp_path / f"{arch}__decode_32k__16x16__baseline"
+                      ".json").read_text())
+    assert art["chips"] == 256 and art["collective_bytes_per_device"] > 0
+    assert min(art[f"{k}_term_s"] for k in ("compute", "memory",
+                                             "collective")) > 0

@@ -61,6 +61,11 @@ SHARDING = ("repro_torch.launch.mesh", "repro_torch.launch.cosched",
             "repro_torch.sharding.context")
 
 
+#: The dry-run and its cost model.
+DRYRUN = ("repro_torch.launch.op_analysis", "repro_torch.launch.dryrun",
+          "repro_torch.launch.profile")
+
+
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT / "src")
@@ -77,6 +82,7 @@ def test_every_module_imports_with_jax_blocked():
     assert set(ELASTIC_FEDERATION_TUNING) <= set(names.split())
     assert set(OBS) <= set(names.split())
     assert set(SHARDING) <= set(names.split())
+    assert set(DRYRUN) <= set(names.split())
 
 
 def _imports(path):
