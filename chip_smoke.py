@@ -8,8 +8,8 @@ serving fabric, the dry-run and its cost model against the card, the
 placement cost model, rwkv6-3b served under a device mesh, rwkv6-3b,
 glm4-9b, mixtral-8x7b (8 of 32 layers), hymba-1.5b,
 seamless-m4t-large-v2 and llava-next-34b (16 of 60 layers) serving, and
-rwkv6-3b training — and holds every kernel of those paths against its
-plain torch version::
+rwkv6-3b training, and the six user examples — and holds every kernel
+of those paths against its plain torch version::
 
     python3 chip_smoke.py
 
@@ -263,9 +263,27 @@ Phases, each printed as one JSON line on stdout:
              |g| > 1e-5 (below it the first step is sign-like, ±lr: those
              elements are counted and held to 2·lr).  The encdec, vlm and
              train paths run no hand-written kernel.
+25. examples — the six user examples (``examples/*_torch.py``), each
+             loaded once by path and driven through its own functions on
+             the card: quickstart §1, custom_plugins, inference_cluster
+             Part 1, tidal_cosched (two days) and cosched_demo (on the
+             dry-run phase's glm4-9b × ``train_4k`` × 16×16 artifact)
+             again with the host numpy backend, every decision, number
+             and printed line equal, the score+slots kernel launched in
+             each; quickstart §2 (the loss goes down) and §3 (rwkv6
+             through the WKV kernel, within 1e-3 of max|logit| of the
+             plain scan on the card); inference_cluster Part 2 (10 of 10
+             requests served); train_e2e at its defaults (ARCH_100M, 300
+             steps, B=4, seq 64, a checkpoint every 100 steps): tokens/s,
+             median step ms after 10 warm-up steps, peak memory, one
+             more step profiled (launches, device busy share); then a run
+             resumed from the checkpoint of step 200, as a run killed
+             there would be, its 100 losses against the uninterrupted
+             run's (bit-equal reported, rtol 1e-5 gated).
 
 Then the ``{"kernels": [...]}`` line (the node-score rows also carry
-each kernel's own device duration from a ``torch.profiler`` trace), the
+each kernel's own device duration from a ``torch.profiler`` trace;
+every row its launches by example), the
 ``nvidia-smi`` line, and as the last line ``{"ok": true, "device": {...}}``.  Any failed check raises and
 the script exits non-zero without that line.  Without a CUDA device it
 exits 2 before doing anything.
@@ -273,9 +291,12 @@ exits 2 before doing anything.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import gc
+import importlib.util
+import io
 import json
 import math
 import os
@@ -422,6 +443,11 @@ CALIB_SSM_STEPS = 5
 COSCHED_LOGIT_TOL = 1e-5        # of max|logit|, sharded against unsharded
 COSCHED_TRAIN_RTOL = 1e-5       # loss and grad norm, sharded against not
 RWKV_PARAMS = 3_073_067_520
+EXAMPLES = ("quickstart", "custom_plugins", "inference_cluster",
+            "tidal_cosched", "cosched_demo", "train_e2e")
+E2E_RESUME_AT = 200     # train_e2e: the checkpoint the resumed run starts from
+E2E_WARMUP = 10         # steps left out of train_e2e's median step time
+E2E_RTOL = 1e-5         # resumed losses against uninterrupted, if not bit-equal
 
 
 def emit(obj) -> None:
@@ -3547,6 +3573,228 @@ def run_fabric(torch, np, dev, counters, smi: str, smoke: bool = False
     return out
 
 
+def load_example(name: str):
+    """``examples/<name>_torch.py``, loaded once by path (custom_plugins
+    registers a plugin at import, which the registry takes once)."""
+    key = f"{name}_torch"
+    if key not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            key, os.path.join(HERE, "examples", f"{key}.py"))
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[key] = mod
+        spec.loader.exec_module(mod)
+    return sys.modules[key]
+
+
+def kernel_launches(node_score, wkv6) -> dict:
+    return {**node_score_launches(node_score), "wkv6": wkv6.wkv6.launches}
+
+
+def captured(fn, *args, **kw):
+    """(fn's result, what it printed, wall s)."""
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args, **kw)
+    return out, buf.getvalue(), time.perf_counter() - t
+
+
+def scheduling_examples(dry_glob: str) -> dict:
+    """The five scheduling examples as (run, outcome): ``run(device,
+    score_backend)`` drives the example's sections as its ``main`` does
+    (its asserts included); ``outcome`` keeps every decision and every
+    number it prints."""
+    qs, cp, ic, td, cd = (load_example(n) for n in EXAMPLES[:5])
+
+    def tidal(device, backend):
+        res, scaler, services = td.run_days(device, backend)
+        td.report(res, scaler, services)
+        return res, scaler
+
+    def tidal_outcome(out):
+        res, scaler = out
+        return {**scheduling_outcome(res),
+                "samples": sample_series(res.metrics),
+                "scale_events": res.scale_events,
+                "satisfaction": scaler.satisfaction(),
+                "demand_log": demand_log(scaler)}
+
+    def plugins_outcome(o):
+        return {"runs": [scheduling_outcome(r) for r in (
+                    o["gfr"]["base"], o["gfr"]["plug"],
+                    o["affinity"]["ebinpack"], o["affinity"]["affinity"],
+                    o["semantic"]["semantic"])],
+                "gfr": {k: v for k, v in o["gfr"].items()
+                        if not k.startswith(("base", "plug"))},
+                "spans": [o["affinity"]["spans"],
+                          o["affinity"]["spans_affinity"],
+                          o["semantic"]["spans"],
+                          o["semantic"]["spans_semantic"]],
+                "rack_first": o["rack_first"]}
+
+    def cosched_outcome(o):
+        return {"terms": o["terms"], "source": o["source"],
+                "mesh": o["mesh"],
+                **{arm: None if o[arm] is None else {
+                    "pods": [(p.node, tuple(p.gpu_indices))
+                             for p in o[arm]["placement"].pods],
+                    "quality": dataclasses.asdict(o[arm]["quality"]),
+                    "collective": o[arm]["collective"],
+                    "step": o[arm]["step"]}
+                   for arm in ("SPREAD", "E_BINPACK")}}
+
+    return {
+        "quickstart": (
+            qs.compare_schedulers,
+            lambda o: {"baseline": scheduling_outcome(o["baseline"]),
+                       "kant": scheduling_outcome(o["kant"]),
+                       "jtted": o["jtted"]}),
+        "custom_plugins": (cp.tour, plugins_outcome),
+        "inference_cluster": (
+            ic.schedule_cluster,
+            lambda o: {**scheduling_outcome(o["result"]),
+                       "usage": o["usage"], "zone_jobs": o["zone_jobs"]}),
+        "tidal_cosched": (tidal, tidal_outcome),
+        "cosched_demo": (
+            lambda d, b: cd.demo(dry_glob, d, b), cosched_outcome),
+    }
+
+
+def run_examples(torch, np, dev, node_score, wkv6, dry_glob: str, smi: str,
+                 steps: int = 300) -> dict:
+    """Phase 25: the six user examples (``examples/*_torch.py``) through
+    their own functions on the card.  The five scheduling examples again
+    with the host numpy backend: every decision, every number and every
+    printed line equal, the score+slots kernel launched in each.
+    quickstart §2 (the loss goes down) and §3 (the rwkv6 forward through
+    the WKV kernel, within ``PARITY_TOL`` of max|logit| of the plain scan
+    on the card); inference_cluster Part 2 (10 of 10 requests served);
+    train_e2e at its defaults, one more step profiled, and a run resumed
+    from the checkpoint the first wrote at ``E2E_RESUME_AT``: its losses
+    against the uninterrupted run's.  Returns the launches of each kernel
+    by example."""
+    import shutil
+    import tempfile
+    t_phase = time.perf_counter()
+    launches, rows = {}, []
+    for name, (run, outcome) in scheduling_examples(dry_glob).items():
+        zero_launches(node_score)
+        wkv6.wkv6.launches = 0
+        card, text, wall = captured(run, dev, "kernel")
+        row = {"example": name, "wall_s_cuda": wall}
+        if name == "quickstart":
+            qs = load_example(name)
+            losses, t2, w2 = captured(qs.train_smoke, dev)
+            logits, t3, w3 = captured(qs.forward_tour, dev, "kernel")
+            text += t2 + t3
+            row.update(losses=losses, train_wall_s=w2, forward_wall_s=w3,
+                       logits_shapes={a: list(x.shape)
+                                      for a, x in logits.items()})
+        if name == "inference_cluster":
+            finished, t2, w2 = captured(load_example(name).serve_placed, dev)
+            row.update(served=len(finished), serve_wall_s=w2,
+                       tokens=sum(len(r.generated) for r in finished))
+            check(len(finished) == 10, f"{name}: {len(finished)} served")
+        launches[name] = kernel_launches(node_score, wkv6)
+        host, host_text, wall_np = captured(run, "cpu", "np")
+        got, want = outcome(card), outcome(host)
+        for key in want:
+            check(got[key] == want[key],
+                  f"{name}: {key} differs between the card and numpy")
+        check(text.startswith(host_text),
+              f"{name}: the card printed other lines than numpy")
+        check(launches[name]["node_scores_slots"] > 0,
+              f"{name} never launched the score+slots kernel: "
+              f"{launches[name]}")
+        if name == "quickstart":
+            scan, _, _ = captured(qs.forward_tour, dev, "scan")
+            err = rel_err(logits["rwkv6-3b"], scan["rwkv6-3b"])
+            check(launches[name]["wkv6"] > 0,
+                  "quickstart §3 never launched the WKV kernel")
+            check(err <= PARITY_TOL, f"quickstart §3: rwkv6 kernel logits "
+                  f"{err:.3e} of max|logit| from the scan's")
+            row.update(rwkv6_kernel_vs_scan=err, tol=PARITY_TOL)
+        if name == "cosched_demo":
+            check(card["source"] != "fallback",
+                  f"cosched_demo found no dry-run artifact at {dry_glob}")
+        row.update(wall_s_host_numpy=wall_np, launches=launches[name],
+                   identical_to_numpy=True, printed=text)
+        emit({"phase": "examples", **row})
+        rows.append(row)
+
+    # train_e2e at its defaults; then resumed from the checkpoint its
+    # uninterrupted run wrote at E2E_RESUME_AT, as a run killed there would
+    te = load_example("train_e2e")
+    kw = te.run.__kwdefaults__
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_e2e_")
+    at_resume = os.path.join(ckpt, "at_resume")
+    save = te.save_checkpoint
+
+    def save_and_keep(directory, state, step=0):
+        save(directory, state, step=step)
+        if step == E2E_RESUME_AT:
+            shutil.copytree(directory, at_resume)
+    try:
+        zero_launches(node_score)
+        wkv6.wkv6.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        te.save_checkpoint = save_and_keep
+        try:
+            (state, hist), text, wall = captured(
+                te.run, te.ARCH_100M, steps=steps,
+                ckpt=os.path.join(ckpt, "run"), device=dev)
+        finally:
+            te.save_checkpoint = save
+        peak = torch.cuda.max_memory_allocated()
+        launches["train_e2e"] = kernel_launches(node_score, wkv6)
+        hist = list(hist)
+        batch = next(te.synthetic_batches(te.ARCH_100M, te.DataConfig(
+            batch=kw["batch"], seq=kw["seq"])))
+        busy = device_totals(torch, lambda: state.step(batch))
+        n_params = sum(p.numel() for p in state.model.parameters())
+        del state
+        free_memory(torch)
+        (_, hist_r), t3, wall_r = captured(te.run, te.ARCH_100M, steps=steps,
+                                           ckpt=at_resume, resume=True,
+                                           device=dev)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    free_memory(torch)
+    losses = [h["loss"] for h in hist]
+    resumed = [h["loss"] for h in hist_r]
+    check(len(resumed) == steps - E2E_RESUME_AT,
+          f"train_e2e resume took {len(resumed)} steps")
+    tail = losses[E2E_RESUME_AT:]
+    rel = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(resumed, tail))
+    check(rel <= E2E_RTOL, f"train_e2e: resumed losses {rel:.3e} from the "
+          f"uninterrupted run's (rtol {E2E_RTOL})")
+    step_s = [h["step_s"] for h in hist[E2E_WARMUP:]]
+    cfg = te.ARCH_100M
+    tokens = kw["batch"] * kw["seq"]
+    row = {"example": "train_e2e", "arch": cfg.name, "params": n_params,
+           "layers": cfg.n_layers, "steps": steps, "batch": kw["batch"],
+           "seq": kw["seq"], "ckpt_every": kw["ckpt_every"],
+           "wall_s_cuda": wall,
+           "loss_first_last": [losses[0], losses[-1]],
+           "step_ms_median": median(step_s) * 1e3,
+           "tokens_per_s": tokens / median(step_s),
+           "peak_gb": peak / 1e9, "launches": launches["train_e2e"],
+           "profiled_step": {**busy, "busy_share":
+                             busy["kernel_ms"] / (median(step_s) * 1e3)},
+           "resume_from": E2E_RESUME_AT, "resumed_wall_s": wall_r,
+           "resumed_bit_equal": resumed == tail,
+           "resumed_max_rel_diff": rel,
+           "grad_norm_bit_equal": [h["grad_norm"] for h in hist_r]
+           == [h["grad_norm"] for h in hist[E2E_RESUME_AT:]],
+           "printed": (text + t3)[-3000:], "nvidia_smi": smi}
+    emit({"phase": "examples", **row})
+    rows.append(row)
+    emit({"phase": "examples-summary",
+          "phase_wall_s": time.perf_counter() - t_phase,
+          "launches": launches, "nvidia_smi": smi})
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4168,6 +4416,16 @@ def main() -> int:
     run_train(torch, np, dev, get_arch(TRAIN_ARCH), counters, smi)
     free_memory(torch)
 
+    # -- 25. examples: the six user examples on the card ---------------
+    ex_launches = run_examples(
+        torch, np, dev, node_score, wkv6,
+        os.path.join(dry_dir, "{}__{}__{}__*.json".format(*DRYRUN_COSCHED)),
+        smi)
+    free_memory(torch)
+
+    def by_example(kernel):
+        return {name: ex_launches[name][kernel] for name in EXAMPLES}
+
     # -- kernels line: timed at the 1M-node full-width pass ------------
     full = scale[-1]
     n1m = full["nodes_scored"]
@@ -4193,6 +4451,7 @@ def main() -> int:
              obs_out["main_attached"]["launches"]["node_scores_slots"],
          "launches_cosched_spread":
              cosched_out["launches"]["node_scores_slots"],
+         "launches_examples": by_example("node_scores_slots"),
          "mismatches": stats["slots"]["mismatches"],
          "max_abs_err": stats["slots"]["max_abs_err"],
          "ms": full["kernel_ms"], "plain_ms": full["plain_ms"],
@@ -4211,6 +4470,7 @@ def main() -> int:
          "launches_federation": federation["launches"]["node_scores"],
          "launches_tuning": tuning["launches"]["node_scores"],
          "launches_obs": obs_out["launches"]["node_scores"],
+         "launches_examples": by_example("node_scores"),
          "mismatches": stats["score"]["mismatches"],
          "max_abs_err": stats["score"]["max_abs_err"],
          "ms": k_score, "plain_ms": p_score, "bound_ms": b_score,
@@ -4230,6 +4490,7 @@ def main() -> int:
                           f"{SERVE_ARCH} full width",
          "launches_fabric": fabric["engines"][SERVE_ARCH]["launches"]["wkv6"],
          "launches_cosched_mesh": cosched_out["launches"]["wkv6"],
+         "launches_examples": by_example("wkv6"),
          "max_abs_err": max(c["max_abs_err"] for c in sweep),
          "max_rel_err": max(c["max_rel_err"] for c in sweep),
          "ms": w_time["chunked_ms"], "step_ms": w_time["step_ms"],

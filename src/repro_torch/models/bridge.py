@@ -1,4 +1,5 @@
-"""Carry the reference's weights across into the port's :class:`Model`.
+"""Carry the reference's weights across into the port's :class:`Model`,
+and its AdamW state into the port's train step.
 
 ``jax.random`` draws cannot be reproduced in torch, so every parity test
 starts both packages from the same numbers: the reference's parameter
@@ -60,3 +61,21 @@ def params_from_reference(cfg: ArchConfig, tree: Dict[str, Any], *,
         for name, stacked in leaf.items():
             unstack(key, name, stacked)
     return sd
+
+
+def opt_state_from_reference(cfg: ArchConfig, opt_tree: Dict[str, Any], *,
+                             device=None) -> Dict[str, Any]:
+    """The port's AdamW state (:func:`repro_torch.train.adamw_init`'s
+    layout: ``m`` and ``v`` by parameter name, an int32 ``step``) from
+    the reference's ``{"m": tree, "v": tree, "step": scalar}``, whose
+    moments are shaped as the parameter tree: each moment is unstacked as
+    :func:`params_from_reference` unstacks the parameters, in f32.
+    ``device=None`` is CUDA.  Raises ``ValueError`` when a stacked
+    moment does not have one row per layer of its stack."""
+    dev = resolve_device(device)
+    return {"m": params_from_reference(cfg, opt_tree["m"], device=dev,
+                                       dtype=torch.float32),
+            "v": params_from_reference(cfg, opt_tree["v"], device=dev,
+                                       dtype=torch.float32),
+            "step": torch.tensor(int(np.asarray(opt_tree["step"])),
+                                 dtype=torch.int32, device=dev)}

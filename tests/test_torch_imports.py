@@ -1,15 +1,22 @@
-"""The port imports neither JAX nor anything of the JAX package, and its
-chip smoke refuses to run without a card."""
+"""The port imports neither JAX nor anything of the JAX package, nor do
+its examples; its chip smoke and its examples refuse to run without a
+card unless the host is asked for."""
 
 import ast
+import importlib.util
 import os
 import pathlib
 import shutil
 import subprocess
 import sys
 
+import pytest
+import torch
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
+EXAMPLES = ("quickstart", "custom_plugins", "inference_cluster",
+            "tidal_cosched", "cosched_demo", "train_e2e")
 
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
@@ -116,3 +123,34 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
                              capture_output=True, text=True, timeout=120)
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+def test_examples_import_no_jax_or_reference():
+    files = [ROOT / "examples" / f"{name}_torch.py" for name in EXAMPLES]
+    offenders = [(f.name, name) for f in files for name in _imports(f)
+                 if name.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert offenders == []
+    assert all("repro_torch" in set(n.split(".")[0] for n in _imports(f))
+               for f in files)
+
+
+def _example(name):
+    """``examples/<name>.py``, loaded once per process under ``name``
+    (custom_plugins registers a plugin at import, which the registry
+    takes once)."""
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            name, ROOT / "examples" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[name] = mod
+        spec.loader.exec_module(mod)
+    return sys.modules[name]
+
+
+@pytest.mark.parametrize("name", EXAMPLES)
+def test_example_asked_for_cuda_raises_without_it(name, monkeypatch):
+    """No fallback: ``--device cuda`` where no CUDA device is visible
+    raises before any work."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA device requested"):
+        _example(f"{name}_torch").main(["--device", "cuda"])
