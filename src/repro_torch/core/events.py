@@ -77,6 +77,10 @@ class EventBus:
         # event BEFORE its handlers, so observers see the pre-handler
         # world.  Must not push events or mutate state.
         self.tap: Optional[Handler] = None
+        # The same telemetry's span recorder: each dispatch runs inside
+        # an ``event`` span, and a ``loop`` span runs from its end to
+        # the next dispatch.  None = untimed.
+        self.obs = None
 
     def __len__(self) -> int:
         return len(self._heap)
@@ -107,7 +111,17 @@ class EventBus:
         return self._pending.get(kind, 0)
 
     def dispatch(self, event: Event) -> None:
-        if self.tap is not None:
-            self.tap(event)
-        for handler in self._handlers.get(event.kind, ()):
-            handler(event)
+        obs = self.obs
+        if obs is None:
+            if self.tap is not None:
+                self.tap(event)
+            for handler in self._handlers.get(event.kind, ()):
+                handler(event)
+            return
+        obs.loop_close()
+        with obs.span("event", event.kind):
+            if self.tap is not None:
+                self.tap(event)
+            for handler in self._handlers.get(event.kind, ()):
+                handler(event)
+        obs.loop_open()

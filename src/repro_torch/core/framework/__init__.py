@@ -25,7 +25,7 @@ from .api import (AdmitPlugin, ClusterSelectPlugin, ControllerPlugin,
                   PreemptPlugin, ProfileSet, QueuePolicyPlugin,
                   QueueSortPlugin, ReservePlugin, RouterPolicyPlugin,
                   SchedulingContext, SchedulingProfile, ScorePlugin,
-                  obs_phase, single_pass_plan)
+                  obs_phase, obs_span, single_pass_plan)
 from .builtin import (BackfillHeadTimeout, BackfillPolicy,
                       BestEffortFIFOPolicy, BinpackScore, ColocateBonus,
                       DefaultQueueSort, DynamicFeasibility, GpuTypeFilter,
@@ -47,7 +47,7 @@ __all__ = [
     "ClusterSelectPlugin", "RouterPolicyPlugin", "ElasticPolicyPlugin",
     "ObserverPlugin", "ControllerPlugin", "PlacementPass",
     "SchedulingProfile", "ProfileSet", "SchedulingContext", "CycleContext",
-    "CycleResult", "single_pass_plan", "obs_phase",
+    "CycleResult", "single_pass_plan", "obs_phase", "obs_span",
     # registry
     "register", "create_plugin", "available_plugins",
     # builtin

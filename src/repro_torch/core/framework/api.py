@@ -546,6 +546,13 @@ def obs_phase(obs, name: str):
     return _NULL_PHASE if obs is None else obs.phase(name)
 
 
+def obs_span(obs, name: str, arg=None):
+    """:func:`obs_phase` for a span that is no pipeline phase (``admit``,
+    ``level1``, ``devices``, ``end``): recorded as a span with its self
+    time, and left out of the phase totals."""
+    return _NULL_PHASE if obs is None else obs.span(name, arg)
+
+
 # ----------------------------------------------------------------------
 # Profiles
 # ----------------------------------------------------------------------

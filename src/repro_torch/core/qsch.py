@@ -37,7 +37,7 @@ import enum
 from typing import Dict, List, Optional
 
 from .cluster import ClusterState
-from .framework.api import CycleContext, CycleResult, obs_phase
+from .framework.api import CycleContext, CycleResult, obs_phase, obs_span
 from .framework.builtin import (BackfillHeadTimeout, BackfillPolicy,
                                 BestEffortFIFOPolicy, StrictFIFOPolicy)
 from .job import Job, JobState
@@ -258,12 +258,15 @@ class QSCH:
             self.elastic.select_shape(job, ctx)
         # Re-check static quota: earlier placements in this cycle may have
         # consumed it since the global-queue filter ran (§3.2.1).
-        if not self.static_admit(job, ctx):
+        with obs_span(obs, "admit"):
+            static_ok = self.static_admit(job, ctx)
+            dynamic_ok = static_ok and self.dynamic_admit(job, ctx)
+        if not static_ok:
             result.admit_rejected += 1
             if obs is not None:
                 obs.emit_reject(job, None, ctx, "static-admit")
             return False
-        if not self.dynamic_admit(job, ctx):
+        if not dynamic_ok:
             result.infeasible += 1
             if obs is not None:
                 obs.emit_reject(job, None, ctx, "dynamic-admit")

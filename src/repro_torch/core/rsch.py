@@ -40,14 +40,15 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from .framework.api import (PlacementPass, ProfileSet, SchedulingContext,
-                            SchedulingProfile, obs_phase, single_pass_plan)
+                            SchedulingProfile, obs_phase, obs_span,
+                            single_pass_plan)
 from .framework.builtin import (GpuTypeFilter, HealthFilter, binpack_pass,
                                 ebinpack_pass, espread_plan, make_profile,
                                 spread_pass)
 from .job import Job, JobKind, Placement, PodPlacement
 from .scoring import (NEG_INF, ScoreWeights, combine_weights,
                       compute_node_scores, compute_node_scores_and_slots,
-                      node_scores_np, select_gang_slots)
+                      node_scores_np, probed, select_gang_slots)
 from .snapshot import Snapshot
 from .topology import ClusterTopology
 from ..device import resolve_device
@@ -237,7 +238,15 @@ class RSCH:
         via ``ClusterState.allocate`` by the caller.  ``ctx`` gives
         Score plugins optional cluster context (e.g. running jobs)."""
         obs = self.obs
-        audit_on = obs is not None and obs.audit_on
+        if obs is None:
+            return self._schedule(job, snap, ctx, False)
+        # The seam's passes of this call run in the telemetry's spans.
+        with obs.span("schedule", job.uid), probed(obs):
+            return self._schedule(job, snap, ctx, obs.audit_on)
+
+    def _schedule(self, job: Job, snap: Snapshot,
+                  ctx: Optional[SchedulingContext],
+                  audit_on: bool) -> ScheduleResult:
         spec = self.speculation
         if spec is not None and spec.job_uid == job.uid:
             # A pipelined speculative result exists for this job.  The
@@ -423,21 +432,24 @@ class RSCH:
 
         # --- Level 1: NodeNetGroup preselection (§3.4.2) ---------------
         gt = int(job.gpu_type)
-        if use_subset:
-            pod_slots = None
-            group_slots = self._group_slots_cached(snap, gt, pass_.zone,
-                                                   job.gpus_per_pod)
-            group_free = self._group_free_cached(snap, gt, pass_.zone)
-            group_used_i = self._group_used_cached(snap, gt, pass_.zone)
-        else:
-            pod_slots = np.where(pool, snap.free_gpus // job.gpus_per_pod,
-                                 0)
-            group_slots = group_free = group_used_i = None
-        group_term = self._group_score_terms(job, snap, pool, pass_, ctx)
-        selected_groups = self._preselect_groups(
-            job, snap, pool, pod_slots, pass_.enhanced, pass_.spread,
-            group_term, group_slots=group_slots, group_free=group_free,
-            group_used=group_used_i)
+        with obs_span(obs, "level1"):
+            if use_subset:
+                pod_slots = None
+                group_slots = self._group_slots_cached(
+                    snap, gt, pass_.zone, job.gpus_per_pod)
+                group_free = self._group_free_cached(snap, gt, pass_.zone)
+                group_used_i = self._group_used_cached(snap, gt,
+                                                       pass_.zone)
+            else:
+                pod_slots = np.where(pool,
+                                     snap.free_gpus // job.gpus_per_pod, 0)
+                group_slots = group_free = group_used_i = None
+            group_term = self._group_score_terms(job, snap, pool, pass_,
+                                                 ctx)
+            selected_groups = self._preselect_groups(
+                job, snap, pool, pod_slots, pass_.enhanced, pass_.spread,
+                group_term, group_slots=group_slots, group_free=group_free,
+                group_used=group_used_i)
         if selected_groups is None:
             return fail("no NodeNetGroup set satisfies job")
         # One gather resolves both group membership and the per-node
@@ -513,20 +525,21 @@ class RSCH:
         # One vectorized gather extracts the availability rows of the
         # selected nodes; the per-pod work is then pure python over
         # G-sized lists (no per-pod numpy dispatch, no full-bitmap copy).
-        uniq = list(dict.fromkeys(nodes))
-        avail_rows = (~snap.gpu_busy[uniq]
-                      & snap.gpu_healthy[uniq]).tolist()
-        avail_map = dict(zip(uniq, avail_rows))
-        pods: List[PodPlacement] = []
-        for node in nodes:
-            avail = avail_map[node]
-            gpus = self._pick_from_avail(avail, job.gpus_per_pod)
-            if gpus is None:
-                return fail("device-level selection failed")
-            for g in gpus:
-                avail[g] = False
-            pods.append(PodPlacement(node=node, gpu_indices=gpus,
-                                     nic=self._nic_list[gpus[0]]))
+        with obs_span(obs, "devices"):
+            uniq = list(dict.fromkeys(nodes))
+            avail_rows = (~snap.gpu_busy[uniq]
+                          & snap.gpu_healthy[uniq]).tolist()
+            avail_map = dict(zip(uniq, avail_rows))
+            pods: List[PodPlacement] = []
+            for node in nodes:
+                avail = avail_map[node]
+                gpus = self._pick_from_avail(avail, job.gpus_per_pod)
+                if gpus is None:
+                    return fail("device-level selection failed")
+                for g in gpus:
+                    avail[g] = False
+                pods.append(PodPlacement(node=node, gpu_indices=gpus,
+                                         nic=self._nic_list[gpus[0]]))
         placement = Placement(pods=pods)
         n_groups = len({int(topo.leaf_id[p.node]) for p in pods})
         return ScheduleResult(placement, "ok", groups_used=n_groups)

@@ -277,24 +277,79 @@ def _staging_for(device) -> _Staging:
     return st
 
 
+#: The span recorder of the seam's passes: the telemetry of the RSCH
+#: whose ``schedule`` runs now, set by :class:`probed`; None = untimed.
+_probe = None
+
+
+class probed:
+    """``with probed(obs):`` runs the block's seam passes in ``obs``'s
+    spans (RSCH's ``schedule`` while a telemetry is attached to it), and
+    restores the recorder of the block around it on exit."""
+
+    __slots__ = ("probe", "outer")
+
+    def __init__(self, probe) -> None:
+        self.probe = probe
+        self.outer = None
+
+    def __enter__(self) -> None:
+        global _probe
+        self.outer, _probe = _probe, self.probe
+
+    def __exit__(self, *exc) -> None:
+        global _probe
+        _probe, self.outer = self.outer, None
+
+
 def _staged_pass(columns, request: int, gpus_per_node: int,
                  weights: ScoreWeights, backend: str, device,
                  with_slots: bool):
     """One score (and slots) pass through the packed seam; see
-    :class:`_Staging`.  Returns owned host arrays."""
-    import torch
+    :class:`_Staging`.  Returns owned host arrays.  Inside an attached
+    RSCH's ``schedule`` (:class:`probed`) the pass runs in its
+    telemetry's spans: ``seam``, with ``seam-pack``, ``seam-launch`` and
+    ``seam-wait``."""
+    probe = _probe
+    if probe is None:
+        st = _staging_for(device)
+        views = _pack(st, columns, with_slots)
+        _launch(st, views, with_slots, request, gpus_per_node, weights,
+                backend)
+        _wait(st)
+        return _owned(views, len(columns[0]), with_slots)
+    with probe.span("seam"):
+        st = _staging_for(device)
+        with probe.span("seam-pack"):
+            views = _pack(st, columns, with_slots)
+        with probe.span("seam-launch"):
+            _launch(st, views, with_slots, request, gpus_per_node,
+                    weights, backend)
+        with probe.span("seam-wait"):
+            _wait(st)
+        n = len(columns[0])
+        probe.seam_done(n, views[4][0].numel(), views[5][0].numel())
+        return _owned(views, n, with_slots)
 
-    from ..kernels import ops  # deferred: keep the np path torch-free
-    st = _staging_for(device)
+
+def _pack(st: _Staging, columns, with_slots: bool):
+    """Fill the host input buffer's column segments; returns the
+    staging's views for the pass (see :meth:`_Staging.layout`)."""
     n = len(columns[0])
-    n_pad = -(-n // NODE_PAD) * NODE_PAD
-    kw = dict(request=request, gpus_per_node=gpus_per_node,
-              weights=weights, backend=backend)
-    host_cols, dev_cols, dev_outs, host_outs, up, down = \
-        st.layout(n_pad, with_slots)
-    for dst, src in zip(host_cols, columns):
+    views = st.layout(-(-n // NODE_PAD) * NODE_PAD, with_slots)
+    for dst, src in zip(views[0], columns):
         np.copyto(dst[:n], src, casting="unsafe")
         dst[n:] = 0
+    return views
+
+
+def _launch(st: _Staging, views, with_slots: bool, request: int,
+            gpus_per_node: int, weights: ScoreWeights, backend: str) -> None:
+    """Enqueue the copy up, the kernel and the copy down."""
+    from ..kernels import ops  # deferred: keep the np path torch-free
+    _, dev_cols, dev_outs, _, up, down = views
+    kw = dict(request=request, gpus_per_node=gpus_per_node,
+              weights=weights, backend=backend)
     if st.on_card:
         up[0].copy_(up[1], non_blocking=True)
     if with_slots:
@@ -303,7 +358,18 @@ def _staged_pass(columns, request: int, gpus_per_node: int,
         ops.node_scores(*dev_cols, out=dev_outs[0], **kw)
     if st.on_card:
         down[0].copy_(down[1], non_blocking=True)
+
+
+def _wait(st: _Staging) -> None:
+    """Wait for the pass's stream (nothing to wait for on the CPU)."""
+    if st.on_card:
+        import torch
         torch.cuda.current_stream(st.device).synchronize()
+
+
+def _owned(views, n: int, with_slots: bool):
+    """Copies of the pass's results that own their memory."""
+    host_outs = views[3]
     scores = host_outs[0][:n].copy()
     if not with_slots:
         return scores

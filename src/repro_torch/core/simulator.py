@@ -28,6 +28,7 @@ from typing import TYPE_CHECKING, Callable, Dict, List, Optional, Sequence
 
 from .cluster import ClusterState
 from .events import Event, EventBus, EventKind
+from .framework.api import obs_span
 from .job import Job, JobState
 from .metrics import MetricsRecorder
 from .qsch import QSCH, CycleResult
@@ -128,11 +129,12 @@ class Simulator:
 
     def _on_end(self, ev: Event) -> None:
         job = ev.payload
-        if (job.state is JobState.RUNNING
-                and self.pending_ends.get(job.uid) == ev.t):
-            self.pending_ends.pop(job.uid, None)
-            self.qsch.on_complete(job, self.state, ev.t)
-            self.metrics.on_job_finished(job)
+        with obs_span(self.obs, "end"):
+            if (job.state is JobState.RUNNING
+                    and self.pending_ends.get(job.uid) == ev.t):
+                self.pending_ends.pop(job.uid, None)
+                self.qsch.on_complete(job, self.state, ev.t)
+                self.metrics.on_job_finished(job)
 
     def _on_tick(self, ev: Event) -> None:
         cfg = self.config

@@ -7,8 +7,9 @@ pillars, one attach point:
 * :mod:`repro_torch.obs.registry`  — Prometheus-style metrics with
   ring-buffered time series and text/JSON exposition;
 * :mod:`repro_torch.obs.trace`     — Chrome trace-event tracer (Perfetto):
-  wall-clock cycle spans with pipeline-phase children, sim-time job
-  lifecycle spans, cluster instants;
+  wall-clock program spans at their true times on the profiler's epoch
+  (cycles, their phases, RSCH, the score seam, events, collections),
+  sim-time job lifecycle spans, cluster instants;
 * :mod:`repro_torch.obs.audit`     — kube-scheduler-style decision audit
   (filter eliminations, per-ScorePlugin breakdown of bound nodes,
   preemption rationale) behind the ObserverPlugin extension point;

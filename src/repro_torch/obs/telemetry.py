@@ -32,13 +32,32 @@ name.
 Time domains: the registry clock and job/cluster trace events run on
 **simulated** time; cycle spans are **wall-clock** (that is what "where
 does scheduling CPU go" means).  See :mod:`repro_torch.obs.trace`.
+
+Spans: every span (the cycle, its pipeline phases, and the program's
+other spans: ``admit``, ``schedule``, ``level1``, ``devices``, ``seam``
+and its parts, ``event``, ``loop``, ``end``, ``gc``) records its start
+and end on ``time.perf_counter_ns`` and nests under the span open when
+it began.  Closing a span adds its time to its parent's children, so
+every name has a self time (its duration less its children's) beside
+its count: :attr:`Telemetry.span_self_s`, :attr:`Telemetry.span_count`.
+Only the pipeline phases also feed ``phase_totals`` and
+``CycleSpan.phases``.  ``attach`` also hooks garbage collections
+(``gc``); the event bus keeps a ``loop`` span open from the end of one
+dispatch to the start of the next (whatever drives the bus: its pop, the
+caller's loop); and RSCH's ``schedule`` hands this telemetry to the
+score seam (``core.scoring.probed``), which then times each pass's
+parts.  Attach with ``audit=False`` to measure the path a detached run
+takes: an audit capture makes RSCH score the whole cluster instead of
+the selected groups.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
-import time
+import weakref
+from time import perf_counter_ns
 from typing import Dict, List, Optional, Sequence
 
 from ..core.events import EventKind
@@ -48,6 +67,31 @@ from .registry import MetricRegistry
 from .trace import PID_CLUSTER, PID_JOBS, PID_SCHED, Tracer
 
 __all__ = ["Telemetry", "CycleSpan", "JobRecord"]
+
+#: The argument a span opened through ``span`` records, by span name
+#: (``cycle`` records ``t_sim`` and ``gc`` its ``generation``).
+_SPAN_ARGS = {"schedule": "uid", "event": "kind"}
+
+#: The score seam's counters: name, help, labels; tallied per pass in
+#: plain numbers and published to the registry when it is collected.
+_SEAM_COUNTERS = (
+    ("kant_seam_calls_total", "score seam passes", {}),
+    ("kant_seam_rows_total", "node rows given to the score seam", {}),
+    ("kant_seam_bytes_total", "packed bytes of the score seam, by direction",
+     {"dir": "up"}),
+    ("kant_seam_bytes_total", "packed bytes of the score seam, by direction",
+     {"dir": "down"}),
+)
+
+#: Telemetries whose spans receive the process's garbage collections.
+_GC_LISTENERS: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def _gc_callback(phase: str, info: Dict) -> None:
+    """The one ``gc.callbacks`` entry: a ``gc`` span on every listener."""
+    for tel in list(_GC_LISTENERS):
+        tel._on_gc(phase, info)
+
 
 #: Histogram buckets for per-cycle wall time (seconds).
 _CYCLE_BUCKETS = (1e-5, 3e-5, 1e-4, 3e-4, 1e-3, 3e-3, 1e-2, 3e-2, 0.1,
@@ -96,24 +140,33 @@ class JobRecord:
         return d
 
 
-class _PhaseTimer:
-    """Context manager accumulating one pipeline phase's wall time."""
+class _Span:
+    """Context manager of one span name on one scope's lane.  A pipeline
+    phase (``phase``) also adds its wall time to the phase totals.  The
+    open span lives on the telemetry's stack, so the object holds no
+    timing of its own; ``arg`` is read when the span opens."""
 
-    __slots__ = ("tel", "scope", "name", "_t0")
+    __slots__ = ("tel", "scope", "name", "tid", "key", "phase", "arg")
 
-    def __init__(self, tel: "Telemetry", scope: Optional[str],
-                 name: str) -> None:
+    def __init__(self, tel: "Telemetry", scope: Optional[str], name: str,
+                 phase: bool) -> None:
         self.tel = tel
         self.scope = scope
         self.name = name
+        # Unscoped spans take the lane of the span they open under.
+        self.tid = None if scope is None else tel._sched_tid(scope)
+        self.key = _SPAN_ARGS.get(name)
+        self.phase = phase
+        self.arg = None
 
-    def __enter__(self) -> "_PhaseTimer":
-        self._t0 = time.perf_counter()
+    def __enter__(self) -> "_Span":
+        self.tel._open(self.name, self.tid, self.key, self.arg)
         return self
 
     def __exit__(self, *exc) -> None:
-        self.tel._phase_done(self.scope, self.name,
-                             time.perf_counter() - self._t0)
+        dt_ns = self.tel._close()
+        if self.phase:
+            self.tel._phase_done(self.scope, self.name, dt_ns / 1e9)
 
 
 class _ScopedTelemetry:
@@ -127,8 +180,13 @@ class _ScopedTelemetry:
     def audit_on(self) -> bool:
         return self._tel.audit_on
 
-    def phase(self, name: str) -> _PhaseTimer:
-        return self._tel._timer(self._scope, name)
+    def phase(self, name: str) -> _Span:
+        return self._tel._timer(self._scope, name, True)
+
+    def span(self, name: str, arg=None) -> _Span:
+        span = self._tel._timer(self._scope, name, False)
+        span.arg = arg
+        return span
 
     def cycle_begin(self, now: float) -> None:
         self._tel.cycle_begin(now, scope=self._scope)
@@ -147,6 +205,15 @@ class _ScopedTelemetry:
 
     def on_bus_event(self, event) -> None:
         self._tel.on_bus_event(event, scope=self._scope)
+
+    def loop_open(self) -> None:
+        self._tel.loop_open(self._scope)
+
+    def loop_close(self) -> None:
+        self._tel.loop_close()
+
+    def seam_done(self, rows: int, up_bytes: int, down_bytes: int) -> None:
+        self._tel.seam_done(rows, up_bytes, down_bytes)
 
     def on_sample(self, sample) -> None:
         self._tel.on_sample(sample, scope=self._scope)
@@ -192,16 +259,29 @@ class Telemetry:
             else None)
         self.observers: List = ([self.audit] if self.audit is not None
                                 else []) + list(observers)
-        self._t0 = time.perf_counter()
-        self._timers: Dict[tuple, _PhaseTimer] = {}
+        self._timers: Dict[tuple, _Span] = {}
         self._cycles: Dict[Optional[str], Dict] = {}
         self._scope_tids: Dict[Optional[str], int] = {}
         self.phase_totals: Dict[str, float] = {}
+        # Open spans, innermost last: [name, tid, start_ns, children_ns,
+        # written to the trace].
+        self._stack: List[list] = []
+        # Per span name: [self ns, total ns, count].
+        self._spans: Dict[str, List[int]] = {}
+        # The number of the cycle open now (None between cycles): the
+        # identifier that the spans of one cycle share.
+        self._cycle_no: Optional[int] = None
+        self._n_cycles = 0
+        # The seam's tallies (``_SEAM_COUNTERS``) and what the registry
+        # has of them.
+        self._seam = [0, 0, 0, 0]
+        self._seam_published = list(self._seam)
         self.jobs: Dict[tuple, JobRecord] = {}
         self.event_counts: Dict[str, int] = {}
         self._attached: List = []
         if self.registry is not None:
             self.registry.add_collector(self._collect_combo_caches)
+            self.registry.add_collector(self._collect_seam)
 
     # -- wiring --------------------------------------------------------
     @property
@@ -217,7 +297,13 @@ class Telemetry:
         sim.qsch.rsch.obs = obs
         sim.metrics.obs = obs
         sim.bus.tap = obs.on_bus_event
+        sim.bus.obs = obs
         self._attached.append(sim)
+        _GC_LISTENERS.add(self)
+        if _gc_callback not in gc.callbacks:
+            gc.callbacks.append(_gc_callback)
+        if self.tracer is not None:
+            self.tracer.anchor()
         if self.registry is not None:
             lbl = self._labels(scope)
 
@@ -241,8 +327,19 @@ class Telemetry:
         sim.qsch.rsch.obs = None
         sim.metrics.obs = None
         sim.bus.tap = None
+        sim.bus.obs = None
         if sim in self._attached:
             self._attached.remove(sim)
+        self.loop_close()
+        if not self._attached:
+            self._unhook()
+
+    def _unhook(self) -> None:
+        """Stop receiving garbage collections (the last sim detached, or
+        a run ended)."""
+        _GC_LISTENERS.discard(self)
+        if not _GC_LISTENERS and _gc_callback in gc.callbacks:
+            gc.callbacks.remove(_gc_callback)
 
     def attach_qsch(self, qsch, scope: Optional[str] = None) -> None:
         """Wire a bare QSCH/RSCH pair (no simulator) — unit-test and
@@ -267,9 +364,6 @@ class Telemetry:
                 self.tracer.metadata(PID_CLUSTER, "cluster (sim time)")
         return tid
 
-    def _wall_us(self) -> float:
-        return (time.perf_counter() - self._t0) * 1e6
-
     def _job_rec(self, job, scope: Optional[str]) -> JobRecord:
         key = (scope, job.uid)
         rec = self.jobs.get(key)
@@ -279,19 +373,109 @@ class Telemetry:
                 n_gpus=job.n_gpus, submit_t=job.submit_time, scope=scope)
         return rec
 
-    # -- phases / cycles -----------------------------------------------
-    def phase(self, name: str) -> _PhaseTimer:
-        return self._timer(None, name)
+    # -- spans / phases / cycles ---------------------------------------
+    def phase(self, name: str) -> _Span:
+        """A pipeline phase's span (``obs_phase``)."""
+        return self._timer(None, name, True)
 
-    def _timer(self, scope: Optional[str], name: str) -> _PhaseTimer:
-        """Interned per (scope, name): phases are non-reentrant and the
-        pipeline enters several per cycle — reusing the context manager
-        keeps the attached hot path allocation-free."""
+    def span(self, name: str, arg=None) -> _Span:
+        """A span that is no pipeline phase (``obs_span``); ``arg`` is
+        recorded under the name's key (``_SPAN_ARGS``)."""
+        span = self._timer(None, name, False)
+        span.arg = arg
+        return span
+
+    def _timer(self, scope: Optional[str], name: str,
+               phase: bool) -> _Span:
+        """Interned per (scope, name): reusing the context manager keeps
+        the attached hot path allocation-free."""
         tmr = self._timers.get((scope, name))
         if tmr is None:
-            tmr = self._timers[(scope, name)] = _PhaseTimer(self, scope,
-                                                            name)
+            tmr = self._timers[(scope, name)] = _Span(self, scope, name,
+                                                      phase)
         return tmr
+
+    def _open(self, name: str, tid: Optional[int], key: Optional[str],
+              arg) -> None:
+        # A garbage collection runs at the first check for pending work
+        # after an allocation schedules it (a call).  The order here puts
+        # every allocation and every call that can run one where a
+        # collection nests under the right span in the trace and in the
+        # self times alike: before the clock read, or after the span is
+        # both on the stack and written.
+        stack = self._stack
+        if tid is None:
+            tid = stack[-1][1] if stack else self._sched_tid(None)
+        if name not in self._spans:
+            self._spans[name] = [0, 0, 0]
+        frame = [name, tid, 0, 0, False]
+        frame[2] = t0 = perf_counter_ns()
+        stack.append(frame)
+        tr = self.tracer
+        if tr is not None:
+            frame[4] = tr.wall_begin(name, t0, tid, self._cycle_no, key, arg)
+
+    def _close(self, args: Optional[Dict] = None) -> int:
+        """Close the innermost span; returns its duration in ns."""
+        t1 = perf_counter_ns()
+        stack = self._stack
+        name, tid, t0, children, written = stack.pop()
+        dur = t1 - t0
+        if stack:
+            stack[-1][3] += dur
+        acc = self._spans[name]
+        acc[0] += dur - children
+        acc[1] += dur
+        acc[2] += 1
+        if written:
+            self.tracer.wall_end(name, t1, tid, args)
+        return dur
+
+    @property
+    def span_self_s(self) -> Dict[str, float]:
+        """Seconds of each span name less the time of its children."""
+        return {k: v[0] / 1e9 for k, v in self._spans.items()}
+
+    @property
+    def span_total_s(self) -> Dict[str, float]:
+        """Seconds of each span name, children included."""
+        return {k: v[1] / 1e9 for k, v in self._spans.items()}
+
+    @property
+    def span_count(self) -> Dict[str, int]:
+        """Closed spans of each name."""
+        return {k: v[2] for k, v in self._spans.items()}
+
+    def _on_gc(self, phase: str, info: Dict) -> None:
+        if phase == "start":
+            self._open("gc", None, "generation", info["generation"])
+        elif self._stack and self._stack[-1][0] == "gc":
+            self._close()
+
+    def loop_open(self, scope: Optional[str] = None) -> None:
+        """Open ``loop``: the event loop between two dispatches."""
+        self._open("loop", self._sched_tid(scope), None, None)
+
+    def loop_close(self) -> None:
+        """Close ``loop`` if it is the innermost open span."""
+        if self._stack and self._stack[-1][0] == "loop":
+            self._close()
+
+    # -- the score seam (core/scoring.py::_staged_pass) -----------------
+    def seam_done(self, rows: int, up_bytes: int, down_bytes: int) -> None:
+        """Tally a finished pass: its rows and the bytes each way."""
+        tally = self._seam
+        tally[0] += 1
+        tally[1] += rows
+        tally[2] += up_bytes
+        tally[3] += down_bytes
+
+    def _collect_seam(self, reg) -> None:
+        for (name, help, labels), total, done in zip(
+                _SEAM_COUNTERS, self._seam, self._seam_published):
+            if total != done:
+                reg.counter(name, help).inc(total - done, **labels)
+        self._seam_published = list(self._seam)
 
     def _phase_done(self, scope: Optional[str], name: str,
                     dt: float) -> None:
@@ -303,15 +487,19 @@ class Telemetry:
 
     def cycle_begin(self, now: float, scope: Optional[str] = None) -> None:
         self._simclock = float(now)
-        self._cycles[scope] = {"t": float(now),
-                               "wall0": time.perf_counter(),
-                               "phases": {}}
+        self._cycles[scope] = {"t": float(now), "phases": {}}
+        self._n_cycles += 1
+        self._cycle_no = self._n_cycles
+        self._open("cycle", self._sched_tid(scope), "t_sim", float(now))
 
     def cycle_end(self, result, ctx, scope: Optional[str] = None) -> None:
         cyc = self._cycles.pop(scope, None)
         if cyc is None:
             return
-        wall = time.perf_counter() - cyc["wall0"]
+        wall = self._close({"scheduled": len(result.scheduled),
+                            "preempted": len(result.preempted),
+                            "requeues": result.requeues}) / 1e9
+        self._cycle_no = None
         span = CycleSpan(t=cyc["t"], wall_s=wall, phases=cyc["phases"],
                          scope=scope, result=result)
         reg = self.registry
@@ -322,6 +510,8 @@ class Telemetry:
             if result.scheduled:
                 reg.counter("kant_scheduled_total",
                             "jobs bound").inc(len(result.scheduled), **lbl)
+                reg.counter("kant_pods_bound_total", "pods bound").inc(
+                    sum(j.n_pods for j in result.scheduled), **lbl)
             if result.admit_rejected:
                 reg.counter("kant_admit_rejected_total",
                             "static admission rejections").inc(
@@ -336,33 +526,12 @@ class Telemetry:
             reg.histogram("kant_cycle_seconds",
                           "wall-clock cycle duration",
                           buckets=_CYCLE_BUCKETS).observe(wall, **lbl)
-        tr = self.tracer
-        if tr is not None:
-            tid = self._sched_tid(scope)
-            end_us = self._wall_us()
-            start_us = end_us - wall * 1e6
-            tr.begin("cycle", start_us, PID_SCHED, tid,
-                     args={"t_sim": cyc["t"]})
-            # The measured phases are re-laid sequentially inside the
-            # cycle span (their true offsets are not recorded; only the
-            # durations are) — documented in docs/observability.md.
-            ts = start_us
-            for name, dur in cyc["phases"].items():
-                tr.span(name, ts, dur * 1e6, PID_SCHED, tid)
-                ts += dur * 1e6
-            tr.end("cycle", end_us, PID_SCHED, tid,
-                   args={"scheduled": len(result.scheduled),
-                         "preempted": len(result.preempted),
-                         "requeues": result.requeues})
         for ob in self.observers:
             ob.on_cycle(span, ctx)
 
     # -- placement decisions (from QSCH) -------------------------------
     def emit_bind(self, job, sched, ctx,
                   scope: Optional[str] = None) -> None:
-        if self.registry is not None:
-            # per-cycle totals come from cycle_end; nothing extra here
-            pass
         decision = None
         if self.audit_on:
             capture = getattr(sched, "audit", None)
@@ -557,6 +726,8 @@ class Telemetry:
     # -- run lifecycle -------------------------------------------------
     def finalize_run(self, sim, scope: Optional[str] = None) -> None:
         self._simclock = max(self._simclock, sim.now)
+        self.loop_close()
+        self._unhook()
         if self.tracer is not None:
             # Horizon cuts / still-pending jobs: close their spans so
             # the trace stays balanced and loadable.

@@ -766,6 +766,68 @@ def test_attached_run_on_the_card_matches_host_numpy(cuda, batched_gang):
     assert sums > 0 or not batched_gang
 
 
+def test_seam_spans_enclose_their_runtime_calls_on_the_profiler_clock(cuda):
+    """Over a 1-s profiled run with the telemetry attached, every program
+    ``seam`` span, put on the profiler's time base, holds its pass's
+    ``cudaLaunchKernel`` and ``cudaStreamSynchronize`` within 20 us, and
+    each such call of the run lies in a ``seam`` span."""
+    import bisect
+    import time
+
+    import repro_torch.core as T
+    from repro_torch.obs import Telemetry
+    from torch.profiler import ProfilerActivity, profile
+    node_score.build()
+    topo = T.small_topology(n_nodes=2048, gpus_per_node=8,
+                            nodes_per_leaf=32)
+    qsch = T.QSCH(T.QuotaManager({"t0": {0: 10 ** 6}}),
+                  T.RSCH(topo, T.RSCHConfig()),
+                  T.QSCHConfig(policy=T.QueuePolicy.BACKFILL))
+    sim = T.Simulator(T.ClusterState.create(topo), qsch,
+                      T.SimConfig(tick_interval=30.0, binding_latency=45.0))
+    sim.prime([j for j in T.training_trace(3000, seed=5,
+                                           arrival_rate_per_hour=3000,
+                                           mean_duration_s=3600.0)
+               if j.n_gpus <= 512])
+
+    def step():
+        ev = sim.bus.pop()
+        sim.now = ev.t
+        sim.bus.dispatch(ev)
+
+    for _ in range(200):
+        step()
+    torch.cuda.synchronize()
+    tel = Telemetry(registry=True, tracing=True, audit=False)
+    tel.attach(sim)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t_stop = time.perf_counter() + 1.0
+        while len(sim.bus) and time.perf_counter() < t_stop:
+            step()
+        torch.cuda.synchronize()
+    tel.detach(sim)
+    seams = sorted((a, b) for name, a, b in tel.tracer.wall_spans()
+                   if name == "seam")
+    starts = [a for a, _ in seams]
+    calls = {"cudaLaunchKernel": [], "cudaStreamSynchronize": []}
+    for e in prof.profiler.kineto_results.events():
+        if e.name() in calls and "CUDA" not in str(e.device_type()):
+            calls[e.name()].append((e.start_ns(),
+                                    e.start_ns() + e.duration_ns()))
+    slack = 20_000
+    assert len(seams) > 20
+    for name, found in calls.items():
+        assert found, name
+        for a, b in found:
+            i = bisect.bisect_right(starts, a + slack) - 1
+            assert i >= 0 and b <= seams[i][1] + slack, (name, a, b)
+    for a, b in seams:
+        for name, found in calls.items():
+            assert any(a - slack <= s and e <= b + slack
+                       for s, e in found), (name, a, b)
+
+
 @pytest.fixture
 def nccl_mesh(cuda):
     """``make_cpu_mesh()`` with no process group: it defaults to the card

@@ -9,16 +9,25 @@ exposition, trace events, audited decisions, bundles and reports — which
 must be equal.  Wall-clock readings (cycle and phase durations, the
 scheduler lane's timestamps) are dropped before the comparison; every
 simulated-time field is compared exactly, and the audit's breakdown
-terms at a relative 1e-6.
+terms at a relative 1e-6.  What only the port records (its registry
+families, its spans and their arguments, listed below) is checked
+against those lists and then left out; every name and family of the
+reference is compared.  The reference lays a cycle's phases out one
+after another and the port records them at their true times, so the
+scheduler lane is compared cycle by cycle: its arguments and the phases
+it ran, in the order they first closed.
 
 The port-side tests at the end cover what the device path adds: audits
 lifted long after their bind, at two widths on one staging; the score
 span closing after the seam's copy back; pipelined cycles auditing as
 unpipelined ones do; bundles that render alike with either report tool;
-and a federation member's scoped series.
+a federation member's scoped series; and the port's spans: nested at
+their true times with their self times, a collection as a span, and the
+hooks that ``detach`` and the run's end take away.
 """
 
 import dataclasses
+import gc
 import json
 import math
 import types
@@ -51,6 +60,15 @@ PORT = types.SimpleNamespace(core=TC, obs=TO, report=TO_report, serve=TS,
 #: Families whose values are wall-clock readings or process-wide state.
 WALL_FAMILIES = ("kant_cycle_seconds",)
 PROCESS_FAMILIES = ("combo_cache_",)
+#: Families only the port registers: pods bound, and the score seam's
+#: passes, rows and bytes.
+PORT_FAMILIES = ("kant_pods_bound_total", "kant_seam_calls_total",
+                 "kant_seam_rows_total", "kant_seam_bytes_total")
+DROPPED = WALL_FAMILIES + PROCESS_FAMILIES + PORT_FAMILIES
+#: Spans only the port records on the scheduler lane, and their args.
+PORT_SPANS = {"admit", "schedule", "level1", "devices", "seam", "seam-pack",
+              "seam-launch", "seam-wait", "event", "loop", "end", "gc"}
+PORT_SPAN_ARGS = {"cycle", "uid", "kind", "generation"}
 
 
 def same(got, want, rel=0.0, path="") -> None:
@@ -95,24 +113,46 @@ def make_qsch(P, topo, *, policy=None):
 # -- what an attached run observed, without its wall-clock readings -----
 def text_view(text):
     return [ln for ln in text.splitlines()
-            if not any(f in ln for f in WALL_FAMILIES + PROCESS_FAMILIES)]
+            if not any(f in ln for f in DROPPED)]
 
 
 def metrics_view(doc):
-    return {k: v for k, v in doc.items()
-            if not k.startswith(WALL_FAMILIES + PROCESS_FAMILIES)}
+    return {k: v for k, v in doc.items() if not k.startswith(DROPPED)}
 
 
 def trace_view(P, events):
-    """Trace events with the scheduler lane's wall timestamps dropped;
-    job and cluster lanes run on simulated time and stay exact."""
-    out = []
+    """The job and cluster lanes (simulated time) exactly; the lane
+    names, sorted; the scheduler lane cycle by cycle, without its wall
+    timestamps: each cycle's begin and end args and the phases it ran,
+    in the order they first closed.  The port's own spans and args must
+    be in ``PORT_SPANS`` and ``PORT_SPAN_ARGS``; they are left out."""
+    sched = P.obs.PID_SCHED
+    rest, meta, cycles, open_ = [], [], [], {}
     for e in events:
-        e = dict(e)
-        if e["pid"] == P.obs.PID_SCHED and e["ph"] != "M":
-            e.pop("ts")
-        out.append(e)
-    return out
+        if e["ph"] == "M":
+            meta.append(e)
+        elif e["pid"] != sched or e["ph"] not in "BE":
+            rest.append(e)
+        else:
+            args = dict(e.get("args") or {})
+            if P.port:
+                for key in PORT_SPAN_ARGS:
+                    args.pop(key, None)
+            name, tid = e["name"], e["tid"]
+            if name == "cycle" and e["ph"] == "B":
+                open_[tid] = {"tid": tid, "begin": args, "phases": []}
+                cycles.append(open_[tid])
+            elif name == "cycle":
+                open_.pop(tid)["end"] = args
+            elif P.port and name in PORT_SPANS:
+                assert not args, (name, args)
+            else:
+                assert tid in open_ and not args, (name, args)
+                if e["ph"] == "E" and name not in open_[tid]["phases"]:
+                    open_[tid]["phases"].append(name)
+    assert not open_
+    return {"lanes": rest, "meta": sorted(meta, key=json.dumps),
+            "cycles": cycles}
 
 
 def bundle_view(P, bundle):
@@ -130,8 +170,7 @@ def report_view(report):
     out = dict(report)
     out["phases"] = sorted(report["phases"])
     out["metrics"] = [m for m in report["metrics"]
-                      if not m["metric"].startswith(WALL_FAMILIES
-                                                    + PROCESS_FAMILIES)]
+                      if not m["metric"].startswith(DROPPED)]
     return out
 
 
@@ -849,3 +888,178 @@ def test_federation_member_series_at_the_64_node_parity_member():
         assert all(d.member == "solo" for d in tel.audit.decisions)
         return sorted(scoped.items()), decisions(tel.audit)
     held(scenario, rel=1e-6)
+
+
+# ----------------------------------------------------------------------
+# Port side: spans at their true times
+# ----------------------------------------------------------------------
+def _wall_tree(tracer):
+    """The tracer's wall spans as nodes ``{name, t0, t1, args, parent,
+    children}`` rebuilt from the order of their B/E events."""
+    nodes, stacks = [], {}
+    for ph, name, t, tid, args in tracer.wall_events():
+        stack = stacks.setdefault(tid, [])
+        if ph == "B":
+            node = {"name": name, "t0": t, "t1": None, "args": args or {},
+                    "parent": stack[-1] if stack else None, "children": []}
+            if stack:
+                stack[-1]["children"].append(node)
+            stack.append(node)
+            nodes.append(node)
+        else:
+            node = stack.pop()
+            assert node["name"] == name
+            node["t1"] = t
+    assert not any(stacks.values())
+    return nodes
+
+
+def test_spans_nest_with_self_times_and_cycle_numbers():
+    """Each child span lies inside its parent; each name's self time is
+    its spans' durations less their children's; the spans of one cycle
+    carry its number, and no span outside a cycle carries one.  Automatic
+    collection is off, so that every span is the program's (a forced one
+    is the next test's)."""
+    tel = TO.Telemetry(audit=False)
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        _, result = _run_sim(PORT, _trace_jobs(PORT), telemetry=tel)
+    finally:
+        if enabled:
+            gc.enable()
+    nodes = _wall_tree(tel.tracer)
+    self_ns, count = {}, {}
+    cycle_numbers = set()
+    for node in nodes:
+        parent = node["parent"]
+        if parent is not None:
+            assert parent["t0"] <= node["t0"] <= node["t1"] <= parent["t1"]
+        dur = node["t1"] - node["t0"]
+        children = sum(c["t1"] - c["t0"] for c in node["children"])
+        self_ns[node["name"]] = self_ns.get(node["name"], 0) + dur - children
+        count[node["name"]] = count.get(node["name"], 0) + 1
+        cycle = None
+        up = node
+        while up is not None and cycle is None:
+            if up["name"] == "cycle":
+                cycle = up
+            up = up["parent"]
+        if cycle is None:
+            assert "cycle" not in node["args"], node["name"]
+        else:
+            assert node["args"]["cycle"] == cycle["args"]["cycle"]
+            cycle_numbers.add(cycle["args"]["cycle"])
+    assert self_ns == {k: v[0] for k, v in tel._spans.items()}
+    assert count == tel.span_count
+    assert len(cycle_numbers) == count["cycle"] == \
+        tel.registry.counter("kant_cycles_total").value()
+    assert {"cycle", "snapshot", "queue-sort", "admit", "schedule",
+            "level1", "filter", "score", "seam", "seam-pack", "seam-launch",
+            "seam-wait", "devices", "reserve-permit", "bind", "event",
+            "loop", "end"} <= set(count)
+    seams = [n for n in nodes if n["name"] == "seam"]
+    assert seams and all(
+        [c["name"] for c in n["children"] if c["name"] != "gc"]
+        == ["seam-pack", "seam-launch", "seam-wait"] for n in seams)
+    assert all(n["parent"]["name"] == "schedule" for n in nodes
+               if n["name"] in ("level1", "filter", "score", "devices"))
+    # dispatches and the loop between them take turns at the top level
+    top = [n["name"] for n in nodes if n["parent"] is None]
+    assert top == ["event", "loop"] * count["event"]
+    assert result.preemptions == 0
+    assert tel.registry.counter("kant_pods_bound_total").value() == sum(
+        j.n_pods for j in result.jobs if j.start_time is not None)
+
+
+def test_forced_collection_is_one_gc_span_under_the_open_span():
+    """With automatic collection off, a ``gc.collect()`` inside an
+    attached cycle's snapshot is the run's one ``gc`` span, a child of
+    ``snapshot``, with its generation."""
+    C = TC
+    topo = C.small_topology(n_nodes=32, gpus_per_node=8, nodes_per_leaf=4)
+    qsch = make_qsch(PORT, topo)
+    sim = C.Simulator(C.ClusterState.create(topo), qsch, C.SimConfig())
+    take = qsch.snapshotter.take
+
+    def take_and_collect(state):
+        if not take_and_collect.done:
+            take_and_collect.done = True
+            gc.collect()
+        return take(state)
+    take_and_collect.done = False
+    qsch.snapshotter.take = take_and_collect
+    tel = TO.Telemetry(audit=False)
+    tel.attach(sim)
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        sim.run([_gang(PORT)])
+    finally:
+        if enabled:
+            gc.enable()
+    (node,) = [n for n in _wall_tree(tel.tracer) if n["name"] == "gc"]
+    assert node["parent"]["name"] == "snapshot"
+    assert node["args"]["generation"] == 2
+    assert tel.span_count["gc"] == 1
+
+
+def test_detach_and_the_run_end_remove_the_gc_hook_and_the_seam_probe(
+        monkeypatch):
+    """The seam times a pass with the telemetry of the RSCH whose
+    ``schedule`` makes it, and with none outside an attached RSCH: a
+    second simulator on the same device records nothing.  ``detach`` and
+    a run's end remove the gc hook, and no span is left open."""
+    C = TC
+    topo = C.small_topology(n_nodes=32, gpus_per_node=8, nodes_per_leaf=4)
+
+    def make_sim():
+        return C.Simulator(C.ClusterState.create(topo),
+                           make_qsch(PORT, topo), C.SimConfig())
+    probes = []
+    pack = C.scoring._pack
+
+    def spy(*args):
+        probes.append(C.scoring._probe)
+        return pack(*args)
+    monkeypatch.setattr(C.scoring, "_pack", spy)
+    listeners = TO.telemetry._GC_LISTENERS
+    sim, other = make_sim(), make_sim()
+    tel = TO.Telemetry()
+    tel.attach(sim)
+    assert tel in listeners and TO.telemetry._gc_callback in gc.callbacks
+    other.run(_trace_jobs(PORT, n=10))
+    assert probes and set(probes) == {None}
+    assert "seam" not in tel.span_count
+    tel.detach(sim)
+    assert tel not in listeners and sim.bus.obs is None
+    assert sim.qsch.rsch.obs is None
+    assert (TO.telemetry._gc_callback in gc.callbacks) == bool(listeners)
+    tel.attach(sim)
+    probes.clear()
+    sim.run(_trace_jobs(PORT, n=10))
+    assert probes and set(probes) == {tel}
+    assert tel.span_count["seam"] == len(probes)
+    assert C.scoring._probe is None and tel not in listeners
+    assert not tel._stack
+
+
+def test_detached_run_records_no_span_and_makes_no_cuda_event(monkeypatch):
+    """Attached then detached, a run adds no trace event and no span to
+    the telemetry, and makes no CUDA event."""
+    import torch
+    made = []
+    monkeypatch.setattr(torch.cuda, "Event",
+                        lambda *a, **kw: made.append(1))
+    tel = TO.Telemetry()
+    C = TC
+    topo = C.small_topology(n_nodes=32, gpus_per_node=8, nodes_per_leaf=4)
+    sim = C.Simulator(C.ClusterState.create(topo),
+                      make_qsch(PORT, topo), C.SimConfig())
+    tel.attach(sim)
+    tel.detach(sim)
+    events = len(tel.tracer.to_json()["traceEvents"])
+    result = sim.run(_trace_jobs(PORT, n=10))
+    assert any(j.placement is not None for j in result.jobs)
+    assert len(tel.tracer.to_json()["traceEvents"]) == events
+    assert not tel.tracer.wall and not tel.span_count and not made
