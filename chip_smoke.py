@@ -2629,7 +2629,11 @@ def obs_trace_gate(core, obs, res, tel) -> dict:
     check(res.metrics.reshapes > 0 and reshapes == res.metrics.reshapes,
           f"{reshapes} reshape instants for {res.metrics.reshapes} "
           f"reshapes")
-    return {"trace_events": len(events), "jobs": len(submitted),
+    # The scheduler lane holds wall-clock spans (``gc``, the seam's),
+    # which differ from run to run and between the card and numpy: only
+    # the simulated-time events are counted, for the comparison.
+    sim_events = sum(e["pid"] != obs.PID_SCHED for e in events)
+    return {"sim_events": sim_events, "jobs": len(submitted),
             "completed": len(completed), "node_fails": fails_bus,
             "reshapes": reshapes, "lanes": len(lanes),
             "lanes_balanced": True, "dropped": tel.tracer.dropped}

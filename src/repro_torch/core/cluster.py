@@ -38,6 +38,41 @@ from .columns import StateColumns
 from .job import Job, Placement, PodPlacement
 from .topology import ClusterTopology
 
+#: Pod count from which a placement is checked and written as one gang,
+#: with whole-array operations, rather than pod by pod: below it the
+#: gang path's fixed cost (the index form and a dozen numpy calls)
+#: outweighs the loop's.
+#: The crossover is measured on the H100 machine's host by
+#: ``scripts/commit_bench.py``; the numbers are in PERF.md §6.
+BATCH_MIN_PODS = 3
+
+
+def commit_index(placement: Placement, keep: bool = True
+                 ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+    """The placement's index form (``Placement.index_form``, kept on it
+    with ``keep``) where it is committed as one gang, None where it is
+    committed pod by pod: fewer than ``BATCH_MIN_PODS`` pods, or pods of
+    different sizes."""
+    if len(placement.pods) < BATCH_MIN_PODS:
+        return None
+    return placement.index_form(keep)
+
+
+def write_busy(busy: np.ndarray, placement: Placement,
+               value: bool) -> np.ndarray:
+    """Set the placement's devices in the ``busy`` bitmap to ``value``:
+    one indexed write for a gang (``commit_index``), else one a pod.
+    A write that frees the devices takes the index form off the
+    placement.  Returns the pods' nodes, int64, in pod order."""
+    index = commit_index(placement, keep=value)
+    if index is None:
+        for pod in placement.pods:
+            busy[pod.node, list(pod.gpu_indices)] = value
+        return np.array(placement.nodes, dtype=np.int64)
+    nodes, slots = index
+    busy[nodes[:, None], slots] = value
+    return nodes
+
 
 class ClusterState:
     """Live cluster state: shared column block + allocation ledger."""
@@ -61,6 +96,9 @@ class ClusterState:
         # code may bulk-write the bitmaps on a fresh state (see module
         # docstring); after that the mutators maintain them per-row.
         self._derived_ready = False
+        # Pods committed by ``allocate``: [as one gang, pod by pod]
+        # (published as ``kant_commit_pods_total`` by repro_torch.obs).
+        self.commit_pods = [0, 0]
 
     # ------------------------------------------------------------------
     # Constructors
@@ -125,10 +163,6 @@ class ClusterState:
         self.cols.refresh_derived()
         self._derived_ready = True
 
-    def _update_rows(self, idx) -> None:
-        if self._derived_ready:
-            self.cols.refresh_derived(np.asarray(idx, dtype=np.int64))
-
     def free_gpus(self) -> np.ndarray:
         """(n_nodes,) count of healthy, unallocated devices per node."""
         self.ensure_derived()
@@ -191,8 +225,12 @@ class ClusterState:
     # ------------------------------------------------------------------
     # Mutation (the only entry points — keeps dirty tracking sound)
     # ------------------------------------------------------------------
-    def _touch(self, nodes: Iterable[int]) -> None:
-        self.dirty_nodes.update(int(n) for n in nodes)
+    def _touch(self, nodes: np.ndarray) -> None:
+        """Mark int64 rows ``nodes`` (repeats allowed) dirty and refresh
+        their derived columns."""
+        self.dirty_nodes.update(nodes.tolist())
+        if self._derived_ready:
+            self.cols.refresh_derived(nodes)
 
     def allocate(self, job: Job, placement: Placement) -> None:
         """Bind a job to concrete devices.  Raises on any conflict; the
@@ -202,15 +240,36 @@ class ClusterState:
             raise ValueError(f"job {job.uid} already allocated")
         if placement.n_gpus != job.n_gpus:
             raise ValueError("placement does not cover the job request")
-        # Validate first (all-or-nothing), then apply.
-        for pod in placement.pods:
-            self._validate_pod(job, pod)
-        for pod in placement.pods:
-            self.cols.gpu_busy[pod.node, list(pod.gpu_indices)] = True
+        # Validate first (all-or-nothing), then apply.  A gang is checked
+        # with whole-array reductions; where they find a fault, the
+        # per-pod checks raise for the first faulty pod.
+        index = commit_index(placement)
+        if index is None or not self._gang_fits(job, *index):
+            for pod in placement.pods:
+                self._validate_pod(job, pod)
+        nodes = write_busy(self.cols.gpu_busy, placement, True)
+        if index is None:
+            self.commit_pods[1] += len(placement.pods)
+        else:
+            self.commit_pods[0] += len(nodes)
         self.allocations[job.uid] = placement
-        nodes = placement.nodes
         self._touch(nodes)
-        self._update_rows(nodes)
+
+    def _gang_fits(self, job: Job, nodes: np.ndarray,
+                   slots: np.ndarray) -> bool:
+        """``_validate_pod`` over every pod at once: True when no pod
+        has a fault."""
+        if (slots.shape[1] != job.gpus_per_pod
+                or nodes.min() < 0 or nodes.max() >= self.n_nodes
+                or slots.min() < 0 or slots.max() >= self.gpus_per_node):
+            return False
+        cols = self.cols
+        rows = nodes[:, None]
+        return bool(cols.node_healthy[nodes].all()
+                    and not cols.node_draining[nodes].any()
+                    and (cols.gpu_type[nodes] == job.gpu_type).all()
+                    and not cols.gpu_busy[rows, slots].any()
+                    and cols.gpu_healthy[rows, slots].all())
 
     def _validate_pod(self, job: Job, pod: PodPlacement) -> None:
         n = pod.node
@@ -237,33 +296,26 @@ class ClusterState:
     def release(self, job_uid: int) -> Placement:
         """Free a job's devices (completion or preemption)."""
         placement = self.allocations.pop(job_uid)
-        for pod in placement.pods:
-            self.cols.gpu_busy[pod.node, list(pod.gpu_indices)] = False
-        nodes = placement.nodes
-        self._touch(nodes)
-        self._update_rows(nodes)
+        self._touch(write_busy(self.cols.gpu_busy, placement, False))
         return placement
 
     def set_gpu_health(self, node: int, gpu: int, healthy: bool) -> None:
         self.cols.gpu_healthy[node, gpu] = healthy
         self.invariants_dirty = True
-        self._touch([node])
-        self._update_rows([node])
+        self._touch(np.array([node], dtype=np.int64))
 
     def set_node_health(self, node: int, healthy: bool) -> None:
         self.cols.node_healthy[node] = healthy
         self.invariants_dirty = True
-        self._touch([node])
-        self._update_rows([node])
+        self._touch(np.array([node], dtype=np.int64))
 
     def set_drain(self, nodes: Iterable[int], draining: bool) -> None:
         """Open/close a planned maintenance drain window (dynamics):
         draining nodes accept no new placements but keep running work."""
-        nodes = [int(n) for n in nodes]
+        nodes = np.array([int(n) for n in nodes], dtype=np.int64)
         self.cols.node_draining[nodes] = draining
         self.invariants_dirty = True
         self._touch(nodes)
-        self._update_rows(nodes)
 
     # ------------------------------------------------------------------
     # Failure-domain queries (dynamics subsystem)
@@ -305,4 +357,5 @@ class ClusterState:
             raise AssertionError("derived columns drifted from bitmaps")
 
 
-__all__ = ["ClusterState", "StateColumns"]
+__all__ = ["BATCH_MIN_PODS", "ClusterState", "StateColumns", "commit_index",
+           "write_busy"]

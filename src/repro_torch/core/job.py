@@ -15,7 +15,10 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import itertools
 from typing import TYPE_CHECKING, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
 
 if TYPE_CHECKING:   # elastic imports JobKind; keep the cycle static-only
     from .elastic.spec import ElasticSpec, ParallelismPlan
@@ -73,6 +76,31 @@ class Placement:
 
     def distinct_nodes(self) -> List[int]:
         return sorted(set(self.nodes))
+
+    def index_form(self, keep: bool = True
+                   ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+        """The pods' nodes as an ``(n_pods,)`` int64 array and their GPU
+        slots as an ``(n_pods, gpus_per_pod)`` int64 array, or None when
+        the pods differ in size (or there are none).  With ``keep`` it
+        is kept on the instance for later calls (a placement's ``pods``
+        are not mutated once it is made); without, a kept one is taken
+        off, so a placement whose devices are freed holds no arrays
+        (finished jobs keep their placements)."""
+        index = self.__dict__.pop("_index", False)
+        if index is False:
+            pods = self.pods
+            slots = [p.gpu_indices for p in pods]
+            k = len(slots[0]) if slots else 0
+            index = None
+            if k and all(len(s) == k for s in slots):
+                index = (np.fromiter([p.node for p in pods], dtype=np.int64,
+                                     count=len(pods)),
+                         np.fromiter(itertools.chain.from_iterable(slots),
+                                     dtype=np.int64, count=k * len(pods)
+                                     ).reshape(len(pods), k))
+        if keep:
+            self._index = index
+        return index
 
 
 @dataclasses.dataclass

@@ -31,7 +31,7 @@ from typing import Callable, Dict, Hashable, Iterable, Optional
 
 import numpy as np
 
-from .cluster import ClusterState
+from .cluster import ClusterState, write_busy
 from .columns import StateColumns
 from .job import Placement
 
@@ -175,15 +175,11 @@ class Snapshot:
         """Mark a just-committed placement's devices busy and refresh the
         touched rows — identical to what a fresh ``take`` would see,
         because ``ClusterState.allocate`` only flips busy bits."""
-        for pod in placement.pods:
-            self.cols.gpu_busy[pod.node, list(pod.gpu_indices)] = True
-        self._refresh_rows(placement.nodes)
+        self._refresh_rows(write_busy(self.cols.gpu_busy, placement, True))
 
     def apply_release(self, placement: Placement) -> None:
         """Inverse delta for a mid-cycle preemption/release."""
-        for pod in placement.pods:
-            self.cols.gpu_busy[pod.node, list(pod.gpu_indices)] = False
-        self._refresh_rows(placement.nodes)
+        self._refresh_rows(write_busy(self.cols.gpu_busy, placement, False))
 
     def apply_health(self, state: "ClusterState",
                      nodes: Iterable[int]) -> None:
@@ -203,9 +199,8 @@ class Snapshot:
         self.mut_count += 1
         self.invalidate_caches()
 
-    def _refresh_rows(self, nodes: Iterable[int]) -> None:
-        idx = np.unique(np.fromiter((int(n) for n in nodes),
-                                    dtype=np.int64))
+    def _refresh_rows(self, nodes: np.ndarray) -> None:
+        idx = np.unique(nodes)
         if idx.size == 0:
             return
         self.cols.refresh_derived(idx)

@@ -83,6 +83,13 @@ _SEAM_COUNTERS = (
      {"dir": "down"}),
 )
 
+#: The pods ``ClusterState.allocate`` committed, by path: tallied in
+#: ``state.commit_pods`` in plain numbers (one gang write, pod by pod)
+#: and published when the registry is collected.
+_COMMIT_COUNTER = ("kant_commit_pods_total",
+                   "pods committed to the column block, by path")
+_COMMIT_PATHS = ("batched", "per_pod")
+
 #: Telemetries whose spans receive the process's garbage collections.
 _GC_LISTENERS: "weakref.WeakSet" = weakref.WeakSet()
 
@@ -306,8 +313,16 @@ class Telemetry:
             self.tracer.anchor()
         if self.registry is not None:
             lbl = self._labels(scope)
+            # What the state had committed before it was attached.
+            committed = list(sim.state.commit_pods)
 
-            def collect(reg, sim=sim, lbl=lbl):
+            def collect(reg, sim=sim, lbl=lbl, committed=committed):
+                tally = sim.state.commit_pods
+                for i, path in enumerate(_COMMIT_PATHS):
+                    if tally[i] != committed[i]:
+                        reg.counter(*_COMMIT_COUNTER).inc(
+                            tally[i] - committed[i], path=path, **lbl)
+                        committed[i] = tally[i]
                 eng = getattr(sim, "_engine", None)
                 if eng is not None:
                     for k, v in eng.summary.as_dict().items():

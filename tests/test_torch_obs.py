@@ -60,10 +60,11 @@ PORT = types.SimpleNamespace(core=TC, obs=TO, report=TO_report, serve=TS,
 #: Families whose values are wall-clock readings or process-wide state.
 WALL_FAMILIES = ("kant_cycle_seconds",)
 PROCESS_FAMILIES = ("combo_cache_",)
-#: Families only the port registers: pods bound, and the score seam's
-#: passes, rows and bytes.
+#: Families only the port registers: pods bound, the score seam's
+#: passes, rows and bytes, and the pods committed by each path.
 PORT_FAMILIES = ("kant_pods_bound_total", "kant_seam_calls_total",
-                 "kant_seam_rows_total", "kant_seam_bytes_total")
+                 "kant_seam_rows_total", "kant_seam_bytes_total",
+                 "kant_commit_pods_total")
 DROPPED = WALL_FAMILIES + PROCESS_FAMILIES + PORT_FAMILIES
 #: Spans only the port records on the scheduler lane, and their args.
 PORT_SPANS = {"admit", "schedule", "level1", "devices", "seam", "seam-pack",
@@ -1063,3 +1064,27 @@ def test_detached_run_records_no_span_and_makes_no_cuda_event(monkeypatch):
     assert any(j.placement is not None for j in result.jobs)
     assert len(tel.tracer.to_json()["traceEvents"]) == events
     assert not tel.tracer.wall and not tel.span_count and not made
+
+
+def test_commit_counter_splits_bound_pods_by_path():
+    """Attached, ``kant_commit_pods_total`` counts the pods of 8-pod gangs
+    under ``path="batched"`` and those of one-pod placements under
+    ``path="per_pod"``; the two paths sum to ``kant_pods_bound_total``."""
+    assert 1 < TC.cluster.BATCH_MIN_PODS <= 8
+    jobs = ([_gang(PORT, uid=i, pods=8, gpg=4, submit_time=60.0 * i,
+                   duration=900.0) for i in range(1, 5)]
+            + [_gang(PORT, uid=i, pods=1, gpg=2, submit_time=20.0 * i,
+                     duration=600.0) for i in range(5, 17)])
+    tel = TO.Telemetry(audit=False)
+    _, result = _run_sim(PORT, jobs, telemetry=tel)
+    bound = [j for j in result.jobs if j.start_time is not None]
+    assert len(bound) == len(jobs) and result.preemptions == 0
+    reg = tel.registry
+    reg.collect()
+    commit = reg.counter("kant_commit_pods_total")
+    assert sorted(ls["path"] for ls in commit.label_sets()) == [
+        "batched", "per_pod"]
+    assert commit.value(path="batched") == 4 * 8
+    assert commit.value(path="per_pod") == 12
+    assert (commit.value(path="batched") + commit.value(path="per_pod")
+            == reg.counter("kant_pods_bound_total").value())
