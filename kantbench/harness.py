@@ -21,7 +21,7 @@ import json
 import os
 import sys
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Collection, Dict, List, Optional
 
 import numpy as np
 
@@ -31,7 +31,8 @@ from .reference import ClusterReference, bits_differ
 #: seconds of the traced sub-window that a ``--trace 1`` run adds after
 #: its measured window
 PROFILE_SECONDS = 3.0
-#: the modules whose presence after the window fails a run
+#: the modules whose presence after the window fails a run (top-level
+#: names compared whole: ``repro_torch`` begins with ``repro``)
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
 #: a tag mixed into the seed for the choice of decisions compared
 SAMPLE_STREAM = 0x636b          # "ck"
@@ -300,11 +301,13 @@ def pods_of(placement) -> Optional[tuple]:
 def compare(config: Dict, columns: Dict, start, end, sim_end: float,
             specs: Dict, probes: Probes) -> Dict[str, Dict]:
     """Replay the program's binds and releases on the reference's own
-    cluster, judging each; at every decision of the window work out the
-    reference's placement and score pass and compare them with the
-    program's; compare the clusters at the start and at the end, and
-    count the jobs still held past their END at ``sim_end``.  Returns
-    each number compared with its limit."""
+    cluster, judging each; at every sampled decision of the window work
+    out the reference's placement and score passes and compare them with
+    the program's: the pods, the number of passes that reached the score
+    pass, and each pass's scores and slots bit for bit (all of the longer
+    list differ where the numbers differ); compare the clusters at the
+    start and at the end, and count the jobs still held past their END
+    at ``sim_end``.  Returns each number compared with its limit."""
     ref = ClusterReference(config, columns)
     n = {"decisions_differ": 0, "score_bits_differ": 0, "slots_differ": 0,
          "binds_invalid": 0, "releases_invalid": 0, "state_differs": 0,
@@ -315,22 +318,20 @@ def compare(config: Dict, columns: Dict, start, end, sim_end: float,
     for i, entry in enumerate(probes.log + [None]):
         while nxt is not None and nxt[0] == i:
             _, uid, placement, passes = nxt
-            want, want_pass = ref.decide(specs[uid])
+            want, want_passes = ref.decide(specs[uid])
             bad = pods_of(placement) != want
-            if want_pass is None:
-                bad |= bool(passes)
-                n["score_bits_differ"] += sum(len(p[0]) for p in passes)
-                n["slots_differ"] += sum(len(p[1]) for p in passes)
-            elif len(passes) != 1:
+            if len(passes) != len(want_passes):
                 bad = True
-                n["score_bits_differ"] += len(want_pass[0])
-                n["slots_differ"] += len(want_pass[1])
+                longer = max(passes, want_passes, key=len)
+                n["score_bits_differ"] += sum(len(p[0]) for p in longer)
+                n["slots_differ"] += sum(len(p[1]) for p in longer)
             else:
-                sb = bits_differ(passes[0][0], want_pass[0])
-                sl = bits_differ(passes[0][1], want_pass[1])
-                n["score_bits_differ"] += sb
-                n["slots_differ"] += sl
-                bad |= bool(sb or sl)
+                for got, ref_pass in zip(passes, want_passes):
+                    sb = bits_differ(got[0], ref_pass[0])
+                    sl = bits_differ(got[1], ref_pass[1])
+                    n["score_bits_differ"] += sb
+                    n["slots_differ"] += sl
+                    bad |= bool(sb or sl)
             n["decisions_differ"] += int(bad)
             n["decisions_checked"] += 1
             nxt = next(decisions, None)
@@ -360,6 +361,32 @@ def forbidden_modules() -> List[str]:
                   if name.split(".")[0] in FORBIDDEN)
 
 
+def refuse_forbidden(before: Collection[str] = ()) -> None:
+    """Fail on the modules of JAX or of the JAX package loaded in this
+    process, less those in ``before``: ``run_cell`` passes what was
+    loaded when it was called, and ``emit`` checks the whole process
+    before a command prints its result."""
+    found = [m for m in forbidden_modules() if m not in before]
+    if found:
+        raise CellError("modules of the JAX package or of JAX are loaded: "
+                        + ", ".join(found))
+
+
+def emit(result: Dict) -> None:
+    """Print a command's result, as every command of the benchmark does:
+    fail first (``CellError``, nothing printed) on a module of JAX or of
+    the JAX package anywhere in the process, since ``run_cell`` holds
+    only its own call; then each number compared beside its limit on
+    standard error, and the result line last on standard output."""
+    refuse_forbidden()
+    for name, check in result["checks"].items():
+        bound = (f"<= {check['max']}" if "max" in check
+                 else f">= {check['min']}")
+        print(f"kantbench check {name} = {check['value']} (limit {bound})",
+              file=sys.stderr)
+    print(json.dumps(result), flush=True)
+
+
 def run_cell(root: str, workload: str, seed: int, seconds: float,
              trace: bool, *, device: Optional[str] = None,
              t_start: Optional[float] = None, age0: float = 0.0,
@@ -371,8 +398,10 @@ def run_cell(root: str, workload: str, seed: int, seconds: float,
     plus ``age0`` (the process's age then); ``early`` the seconds of the
     steps before this call, for ``setup_parts``.  ``on_program`` is
     called with the built program before its first event (the tests
-    plant faults there).  Returns the result line as a dict, with
-    ``checks`` (each number compared and its limit) last."""
+    plant faults there).  A module of JAX or of the JAX package loaded
+    during the call fails it (``CellError``).  Returns the result line as
+    a dict, with ``checks`` (each number compared and its limit) last."""
+    loaded_before = set(forbidden_modules())
     import torch
     if t_start is None:
         t_start = time.perf_counter()
@@ -476,10 +505,7 @@ def run_cell(root: str, workload: str, seed: int, seconds: float,
     finally:
         probes.close()
         gc.unfreeze()
-    found_mods = forbidden_modules()
-    if found_mods:
-        raise CellError("modules of the JAX package or of JAX are loaded: "
-                        + ", ".join(found_mods))
+    refuse_forbidden(loaded_before)
     # The program's state is no longer needed; the reference runs now.
     checks = compare(config, columns, start, end, sim.now, specs, probes)
     m = {"window_s": t_close - t_open, "setup_s": setup_s,

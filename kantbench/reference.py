@@ -5,23 +5,45 @@ columns the benchmark made from the seed, it keeps its own copy of the
 cluster (a busy bitmap and per-node free and used counts), applies to it
 the binds and releases the program reports, judges each of them against
 the configuration's guarantees, and works out on its own what placement
-the E-Binpack training pass gives for a job on the cluster as it stands:
-Level 1 (NodeNetGroup preselection), the fused filter+score pass and its
-pod slots over the selected groups' nodes, the slot chains, and the GPUs
-within each node.  The score formula and the slot-chain selection are
-frozen copies of the ones the Kant reproduction specifies: float32 in
-NumPy's order of operations, ties to the lower node index.
+the configuration's plan gives for a job on the cluster as it stands.
+The plan is that of the ``scheduler`` block (§3.3.3, §3.3.4): E-Binpack
+for training jobs; E-Spread for inference jobs, that is the inference
+zone's spread pass and then E-Binpack outside the zone for pods smaller
+than ``espread_small_pod_gpus``, E-Binpack outside the zone and then over
+the whole pool for larger pods, and E-Binpack over the whole pool where
+the configuration has no zone.  Each pass runs Level 1 (NodeNetGroup
+preselection), the fused filter+score pass and its pod slots over the
+selected groups' nodes, the slot chains, and the GPUs within each node;
+the first pass that places wins.  The score formula and the slot-chain
+selection are frozen copies of the ones the Kant reproduction specifies:
+float32 in NumPy's order of operations, ties to the lower node index.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
 NEG_INF = float(np.finfo(np.float32).min)
 
 Pods = Tuple[Tuple[int, Tuple[int, ...]], ...]
+
+#: the weights of E-Spread's zone pass (§3.3.4): spread over a node's used
+#: GPUs and its group's load, with no exact-fit, anchor or co-location term
+ESPREAD_ZONE_WEIGHTS = {"used": -1.0, "fit": 0.0, "group": -0.25,
+                        "topo": 0.0}
+
+
+class Pass(NamedTuple):
+    """One pass of a placement plan: its pool (``"zone"``, ``"general"``
+    for the nodes outside the zone, or ``"all"``), its score weights,
+    whether Level 1 takes the emptiest group, and its co-location bonus."""
+
+    where: str
+    weights: Dict[str, float]
+    spread: bool
+    colocate: float
 
 
 def node_scores(free: np.ndarray, used: np.ndarray, mask: np.ndarray,
@@ -80,10 +102,11 @@ def slot_chains(cand: np.ndarray, scores: np.ndarray, free: np.ndarray,
 
 
 class ClusterReference:
-    """The reference's own copy of one cluster and the rules that place
-    a training job on it.  Only the E-Binpack training pass is held: a
-    job of another kind, or a configuration with another strategy, is
-    refused."""
+    """The reference's own copy of one cluster and the plan that places
+    a job on it: E-Binpack for training jobs, E-Spread for inference
+    jobs (the module's docstring gives its passes).  A job of another
+    kind, a configuration with another strategy, and a plan whose slot
+    chains would fall are refused."""
 
     def __init__(self, config: Dict, columns: Dict[str, np.ndarray]) -> None:
         topo = config["topology"]
@@ -101,11 +124,25 @@ class ClusterReference:
                         for a in range(0, self.g, island)]
         sched = config["scheduler"]
         if sched["train_strategy"] != "e-binpack":
-            raise ValueError("the reference holds the E-Binpack pass only")
+            raise ValueError("the reference holds the E-Binpack training "
+                             "strategy only")
+        if sched["infer_strategy"] != "e-spread":
+            raise ValueError("the reference holds the E-Spread inference "
+                             "strategy only")
         self.w = {k: float(v) for k, v in sched["train_weights"].items()}
-        self.colocate = float(sched["colocate_bonus"])
-        if not (self.colocate >= 0.0 and self.colocate + self.w["fit"] >= 0.0):
-            raise ValueError("slot chains that fall are not held")
+        self.small_pod_gpus = int(sched["espread_small_pod_gpus"])
+        self.zone = np.array(columns["inference_zone"], dtype=bool,
+                             copy=True)
+        self.train_pass = Pass("all", self.w, False,
+                               float(sched["colocate_bonus"]))
+        self.zone_pass = Pass("zone", ESPREAD_ZONE_WEIGHTS, True, 0.0)
+        self.general_pass = Pass("general", self.w, False, 0.0)
+        self.whole_pass = Pass("all", self.w, False, 0.0)
+        for p in (self.train_pass, self.zone_pass, self.general_pass,
+                  self.whole_pass):
+            if not (p.colocate >= 0.0
+                    and p.colocate + p.weights["fit"] >= 0.0):
+                raise ValueError("slot chains that fall are not held")
         self.latency = float(config["sim"]["binding_latency_s"])
         self.busy = np.array(columns["gpu_busy"], dtype=bool, copy=True)
         self.gpu_ok = np.array(columns["gpu_healthy"], dtype=bool, copy=True)
@@ -117,13 +154,26 @@ class ClusterReference:
         self.used = (self.busy & self.gpu_ok).sum(axis=1).astype(np.int64)
         self.held: Dict[int, Tuple[Pods, float]] = {}
         self.durations: Dict[int, float] = {}
+        self._pools: Dict[Tuple[int, str], np.ndarray] = {}
 
     # -- the reference's bookkeeping --------------------------------------
     def free(self) -> np.ndarray:
         return np.where(self.node_ok, self.healthy_count - self.used, 0)
 
-    def pool(self, gpu_type: int) -> np.ndarray:
-        return (self.gpu_type == gpu_type) & self.node_ok & ~self.draining
+    def pool(self, gpu_type: int, where: str = "all") -> np.ndarray:
+        """The nodes of a GPU type that take pods, in the zone, outside
+        it or all (health and drains never change in the reference, so
+        each mask is made once)."""
+        key = (int(gpu_type), where)
+        mask = self._pools.get(key)
+        if mask is None:
+            mask = (self.gpu_type == gpu_type) & self.node_ok & ~self.draining
+            if where == "zone":
+                mask &= self.zone
+            elif where == "general":
+                mask &= ~self.zone
+            self._pools[key] = mask
+        return mask
 
     def bind(self, job: Dict, pods: Pods, t: float) -> int:
         """Apply a bind the program reports; returns the faults in it
@@ -181,16 +231,20 @@ class ClusterReference:
 
     # -- the placement rules -------------------------------------------------
     def _groups(self, n_pods: int, slots_g: np.ndarray, free_g: np.ndarray,
-                used_g: np.ndarray) -> Optional[List[int]]:
-        """Level 1: the busiest group that fits the whole job (fewest
-        free, then most used, then lowest index); else the group with the
-        most slots and the fewest others that cover the job, those under
-        its spine first, then by most slots, then by index."""
+                used_g: np.ndarray, spread: bool) -> Optional[List[int]]:
+        """Level 1: of the groups that fit the whole job, the emptiest
+        (most free, then lowest index) when ``spread``, else the busiest
+        (most used, then fewest free, then lowest index); where none
+        fits, the group with the most slots and the fewest others that
+        cover the job, those under its spine first, then by most slots,
+        then by index."""
         cand = np.nonzero(slots_g > 0)[0]
         if len(cand) == 0 or slots_g.sum() < n_pods:
             return None
         fits = cand[slots_g[cand] >= n_pods]
         if len(fits):
+            if spread:
+                return [int(fits[np.lexsort((fits, -free_g[fits]))[0]])]
             return [int(fits[np.lexsort((fits, free_g[fits],
                                          -used_g[fits]))[0]])]
         seed = int(cand[np.lexsort((cand, -slots_g[cand]))[0]])
@@ -215,16 +269,39 @@ class ClusterReference:
                 return tuple(m[:k])
         return tuple([g for m in members for g in m][:k])
 
+    def plan(self, job: Dict) -> Tuple[Pass, ...]:
+        """The passes tried for ``job``, in order."""
+        if job["kind"] == "train":
+            return (self.train_pass,)
+        if job["kind"] != "infer":
+            raise ValueError("the reference holds training and inference "
+                             "jobs only")
+        if not self.zone.any():
+            return (self.whole_pass,)
+        if int(job["gpus_per_pod"]) < self.small_pod_gpus:
+            return (self.zone_pass, self.general_pass)
+        return (self.general_pass, self.whole_pass)
+
     def decide(self, job: Dict):
         """The placement of ``job`` on the cluster as it stands, and the
-        score pass it rests on: ``(pods or None, (scores, slots) or
-        None)``."""
-        if job["kind"] != "train":
-            raise ValueError("the reference holds the training pass only")
+        score passes it rests on: ``(pods or None, passes)``, where
+        ``passes`` holds the ``(scores, slots)`` of each pass of the plan
+        that reached the score pass, up to the first that places."""
+        passes = []
+        for p in self.plan(job):
+            pods, scored = self._place(job, p)
+            if scored is not None:
+                passes.append(scored)
+            if pods is not None:
+                return pods, passes
+        return None, passes
+
+    def _place(self, job: Dict, p: Pass):
+        """One pass: ``(pods or None, (scores, slots) or None)``."""
         req, n_pods = int(job["gpus_per_pod"]), int(job["n_pods"])
         free = self.free()
         used = self.used
-        pool = self.pool(job["gpu_type"])
+        pool = self.pool(job["gpu_type"], p.where)
         if not pool.any():
             return None, None
         nl = self.n_groups
@@ -234,7 +311,7 @@ class ClusterReference:
                              minlength=nl)
         used_g = np.bincount(self.leaf, weights=np.where(pool, used, 0),
                              minlength=nl)
-        groups = self._groups(n_pods, slots_g, free_g, used_g)
+        groups = self._groups(n_pods, slots_g, free_g, used_g, p.spread)
         if groups is None:
             return None, None
         pref = np.zeros(nl, dtype=np.float32)
@@ -251,14 +328,14 @@ class ClusterReference:
         mask = pool[sub]
         free_sub = free[sub]
         scores = node_scores(free_sub, used[sub], mask, load[lsub],
-                             pref[lsub], req, self.g, self.w)
+                             pref[lsub], req, self.g, p.weights)
         slots = pod_slots(free_sub, mask, req)
         if int(slots.sum()) < n_pods:
             return None, (scores, slots)
         cand = top_candidates(scores, slots, n_pods)
         order = slot_chains(cand, scores, free_sub, slots, req, n_pods,
-                            self.w["fit"])
-        nodes = [int(sub[p]) for p in order]
+                            p.weights["fit"])
+        nodes = [int(sub[i]) for i in order]
         uniq = list(dict.fromkeys(nodes))
         avail = dict(zip(uniq, (~self.busy[uniq] & self.gpu_ok[uniq]).tolist()))
         pods = []

@@ -29,7 +29,6 @@ fails.
 from __future__ import annotations
 
 import bisect
-import json
 import os
 import sys
 import time
@@ -255,12 +254,7 @@ def main(argv=None) -> int:
         return 2
     result = trace_cell(ROOT, args.workload, args.seed, args.seconds,
                         spans_seconds=args.spans_seconds)
-    for name, check in result["checks"].items():
-        bound = (f"<= {check['max']}" if "max" in check
-                 else f">= {check['min']}")
-        print(f"kantbench check {name} = {check['value']} (limit {bound})",
-              file=sys.stderr)
-    print(json.dumps(result), flush=True)
+    harness.emit(result)
     return 0 if result["correct"] else 1
 
 

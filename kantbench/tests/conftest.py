@@ -36,8 +36,46 @@ TINY_PAIRS = {
     "arrivals": {"per_tick": 2, "lifetime_ticks": 6},
     "warmup_ticks": 12,
 }
+#: inference services of 2 pods x 2 GPUs, four a tick: pods smaller than
+#: ``espread_small_pod_gpus``, placed by E-Spread's zone pass
+TINY_INFER = {
+    "generator": "stationary",
+    "why": "test: four 2-pod x 2-GPU services a tick, 24 in flight, "
+           "in the inference zone",
+    "population": {"kind": "infer", "gang": False, "priority": "high",
+                   "tenant": "t0", "gpu_type": 0,
+                   "shape": {"n_pods": 2, "gpus_per_pod": 2}},
+    "arrivals": {"per_tick": 4, "lifetime_ticks": 6},
+    "warmup_ticks": 12,
+}
+#: one-pod 8-GPU services: E-Binpack outside the zone
+TINY_INFER8 = {
+    "generator": "stationary",
+    "why": "test: two 1-pod x 8-GPU services a tick, 12 in flight, "
+           "E-Binpack outside the zone",
+    "population": {"kind": "infer", "gang": False, "priority": "high",
+                   "tenant": "t0", "gpu_type": 0,
+                   "shape": {"n_pods": 1, "gpus_per_pod": 8}},
+    "arrivals": {"per_tick": 2, "lifetime_ticks": 6},
+    "warmup_ticks": 12,
+}
+#: 4-pod x 4-GPU services, 60 in flight: 960 GPUs against the ~680 that
+#: the 128-node zone has free, so the zone pass fails for some and
+#: E-Binpack outside the zone places them
+TINY_OVERFLOW = {
+    "generator": "stationary",
+    "why": "test: six 4-pod x 4-GPU services a tick, 60 in flight, more "
+           "than the zone holds",
+    "population": {"kind": "infer", "gang": False, "priority": "high",
+                   "tenant": "t0", "gpu_type": 0,
+                   "shape": {"n_pods": 4, "gpus_per_pod": 4}},
+    "arrivals": {"per_tick": 6, "lifetime_ticks": 10},
+    "warmup_ticks": 20,
+}
 #: the configuration of the tiny cells: kant-80k cut to 512 nodes
 TINY_CONFIG = "tiny-cluster"
+#: nodes of the tiny configuration's inference zone (its first nodes)
+TINY_ZONE = 128
 
 
 def tiny_config():
@@ -46,7 +84,7 @@ def tiny_config():
         config = json.load(f)
     config["name"] = TINY_CONFIG
     config["topology"]["n_nodes"] = 512
-    config["inference_zone_nodes"] = 128
+    config["inference_zone_nodes"] = TINY_ZONE
     return config
 
 
@@ -97,4 +135,7 @@ def cpu_profile(torch, body):
 @pytest.fixture
 def tiny_root(tmp_path):
     return make_root(tmp_path, {"tiny-gangs": TINY_TRAFFIC,
-                                "tiny-pairs": TINY_PAIRS})
+                                "tiny-pairs": TINY_PAIRS,
+                                "tiny-infer": TINY_INFER,
+                                "tiny-infer8": TINY_INFER8,
+                                "tiny-overflow": TINY_OVERFLOW})

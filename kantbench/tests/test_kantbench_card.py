@@ -8,7 +8,7 @@ import sys
 
 import pytest
 
-from conftest import ROOT
+from .conftest import ROOT
 
 
 def shipped_cells():

@@ -5,7 +5,7 @@ in flight held stationary."""
 import numpy as np
 import pytest
 
-from conftest import TINY_PAIRS, TINY_TRAFFIC, tiny_config
+from .conftest import TINY_PAIRS, TINY_TRAFFIC, tiny_config
 from kantbench import harness, inputs
 from kantbench.generators import stationary
 

@@ -9,7 +9,7 @@ import sys
 
 import pytest
 
-from conftest import ROOT, cpu_profile
+from .conftest import ROOT, cpu_profile
 from kantbench import harness
 
 KEYS = ["correct", "attempted", "failed", "metrics", "device"]

@@ -12,7 +12,7 @@ import time
 
 import pytest
 
-from conftest import cpu_profile
+from .conftest import cpu_profile
 from kantbench import harness, spans
 
 SEED = 2 ** 31 + 17
@@ -98,7 +98,7 @@ def test_spans_tool_on_card():
 
     import torch
 
-    from conftest import ROOT
+    from .conftest import ROOT
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     proc = subprocess.run(
