@@ -33,6 +33,7 @@ to the pre-framework scheduler (asserted by
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import enum
 from typing import Dict, List, Optional, Tuple
@@ -52,6 +53,9 @@ from .scoring import (NEG_INF, ScoreWeights, combine_weights,
 from .snapshot import Snapshot
 from .topology import ClusterTopology
 from ..device import resolve_device
+
+#: the context a pass runs in when it has no span of its own (reusable)
+_NO_SPAN = contextlib.nullcontext()
 
 
 class Strategy(enum.Enum):
@@ -239,14 +243,14 @@ class RSCH:
         Score plugins optional cluster context (e.g. running jobs)."""
         obs = self.obs
         if obs is None:
-            return self._schedule(job, snap, ctx, False)
+            return self._schedule(job, snap, ctx, None)
         # The seam's passes of this call run in the telemetry's spans.
         with obs.span("schedule", job.uid), probed(obs):
-            return self._schedule(job, snap, ctx, obs.audit_on)
+            return self._schedule(job, snap, ctx, obs)
 
     def _schedule(self, job: Job, snap: Snapshot,
-                  ctx: Optional[SchedulingContext],
-                  audit_on: bool) -> ScheduleResult:
+                  ctx: Optional[SchedulingContext], obs) -> ScheduleResult:
+        audit_on = obs is not None and obs.audit_on
         spec = self.speculation
         if spec is not None and spec.job_uid == job.uid:
             # A pipelined speculative result exists for this job.  The
@@ -271,9 +275,21 @@ class RSCH:
         if audit_on:
             capture = {"profile": profile.name, "passes": []}
         result = ScheduleResult(None, "empty placement plan")
-        for pass_ in profile.plan(job, snap):
-            result = self._run_pass(job, snap, pass_, profile, ctx,
-                                    capture)
+        plan = profile.plan(job, snap)
+        # Attached, each pass is counted by its pool ("all" where it has
+        # no zone) and whether it placed; the passes of a plan of more
+        # than one (E-Spread's zone pass and its fallbacks) also run in
+        # a span each, ``pass-<pool>`` under ``schedule``.  A plan of one
+        # pass is its ``schedule`` span.
+        spanned = obs is not None and len(plan) > 1
+        for pass_ in plan:
+            with (obs.span("pass-" + (pass_.zone or "all")) if spanned
+                  else _NO_SPAN):
+                result = self._run_pass(job, snap, pass_, profile, ctx,
+                                        capture)
+            if obs is not None:
+                obs.pass_done(pass_.zone or "all",
+                              result.placement is not None)
             if result.placement is not None:
                 break
         result.audit = capture

@@ -34,8 +34,10 @@ Time domains: the registry clock and job/cluster trace events run on
 does scheduling CPU go" means).  See :mod:`repro_torch.obs.trace`.
 
 Spans: every span (the cycle, its pipeline phases, and the program's
-other spans: ``admit``, ``schedule``, ``level1``, ``devices``, ``seam``
-and its parts, ``event``, ``loop``, ``end``, ``gc``) records its start
+other spans: ``admit``, ``schedule``, ``pass-zone``, ``pass-general``
+and ``pass-all`` (the passes of a plan of more than one), ``level1``,
+``devices``, ``seam`` and its parts, ``event``, ``loop``, ``end``,
+``gc``) records its start
 and end on ``time.perf_counter_ns`` and nests under the span open when
 it began.  Closing a span adds its time to its parent's children, so
 every name has a self time (its duration less its children's) beside
@@ -89,6 +91,12 @@ _SEAM_COUNTERS = (
 _COMMIT_COUNTER = ("kant_commit_pods_total",
                    "pods committed to the column block, by path")
 _COMMIT_PATHS = ("batched", "per_pod")
+
+#: The placement passes RSCH ran, by pool (``zone``, ``general`` or
+#: ``all``) and whether the pass placed the job: tallied per pass in
+#: plain numbers and published when the registry is collected.
+_PASS_COUNTER = ("kant_placement_passes_total",
+                 "placement passes run, by pool and outcome")
 
 #: Telemetries whose spans receive the process's garbage collections.
 _GC_LISTENERS: "weakref.WeakSet" = weakref.WeakSet()
@@ -222,6 +230,9 @@ class _ScopedTelemetry:
     def seam_done(self, rows: int, up_bytes: int, down_bytes: int) -> None:
         self._tel.seam_done(rows, up_bytes, down_bytes)
 
+    def pass_done(self, pool: str, placed: bool) -> None:
+        self._tel.pass_done(pool, placed, scope=self._scope)
+
     def on_sample(self, sample) -> None:
         self._tel.on_sample(sample, scope=self._scope)
 
@@ -283,12 +294,17 @@ class Telemetry:
         # has of them.
         self._seam = [0, 0, 0, 0]
         self._seam_published = list(self._seam)
+        # RSCH's passes, (scope, pool, placed) -> count, and what the
+        # registry has of them.
+        self._passes: Dict[tuple, int] = {}
+        self._passes_published: Dict[tuple, int] = {}
         self.jobs: Dict[tuple, JobRecord] = {}
         self.event_counts: Dict[str, int] = {}
         self._attached: List = []
         if self.registry is not None:
             self.registry.add_collector(self._collect_combo_caches)
             self.registry.add_collector(self._collect_seam)
+            self.registry.add_collector(self._collect_passes)
 
     # -- wiring --------------------------------------------------------
     @property
@@ -491,6 +507,23 @@ class Telemetry:
             if total != done:
                 reg.counter(name, help).inc(total - done, **labels)
         self._seam_published = list(self._seam)
+
+    # -- RSCH's placement passes (core/rsch.py::_schedule) --------------
+    def pass_done(self, pool: str, placed: bool,
+                  scope: Optional[str] = None) -> None:
+        """Tally a finished pass of a placement plan."""
+        key = (scope, pool, placed)
+        self._passes[key] = self._passes.get(key, 0) + 1
+
+    def _collect_passes(self, reg) -> None:
+        for key, total in self._passes.items():
+            done = self._passes_published.get(key, 0)
+            if total != done:
+                scope, pool, placed = key
+                reg.counter(*_PASS_COUNTER).inc(
+                    total - done, pool=pool, placed=str(placed).lower(),
+                    **self._labels(scope))
+                self._passes_published[key] = total
 
     def _phase_done(self, scope: Optional[str], name: str,
                     dt: float) -> None:

@@ -61,14 +61,16 @@ PORT = types.SimpleNamespace(core=TC, obs=TO, report=TO_report, serve=TS,
 WALL_FAMILIES = ("kant_cycle_seconds",)
 PROCESS_FAMILIES = ("combo_cache_",)
 #: Families only the port registers: pods bound, the score seam's
-#: passes, rows and bytes, and the pods committed by each path.
+#: passes, rows and bytes, the pods committed by each path, and RSCH's
+#: placement passes.
 PORT_FAMILIES = ("kant_pods_bound_total", "kant_seam_calls_total",
                  "kant_seam_rows_total", "kant_seam_bytes_total",
-                 "kant_commit_pods_total")
+                 "kant_commit_pods_total", "kant_placement_passes_total")
 DROPPED = WALL_FAMILIES + PROCESS_FAMILIES + PORT_FAMILIES
 #: Spans only the port records on the scheduler lane, and their args.
-PORT_SPANS = {"admit", "schedule", "level1", "devices", "seam", "seam-pack",
-              "seam-launch", "seam-wait", "event", "loop", "end", "gc"}
+PORT_SPANS = {"admit", "schedule", "pass-zone", "pass-general", "pass-all",
+              "level1", "devices", "seam", "seam-pack", "seam-launch",
+              "seam-wait", "event", "loop", "end", "gc"}
 PORT_SPAN_ARGS = {"cycle", "uid", "kind", "generation"}
 
 
@@ -1088,3 +1090,77 @@ def test_commit_counter_splits_bound_pods_by_path():
     assert commit.value(path="per_pod") == 12
     assert (commit.value(path="batched") + commit.value(path="per_pod")
             == reg.counter("kant_pods_bound_total").value())
+
+
+def _service_sim(telemetry=None, detach=False):
+    """Three 4-pod x 4-GPU inference services at t = 0 on a 32-node
+    cluster whose inference zone is its first group (4 nodes, 32 GPUs):
+    E-Spread's zone pass places the first two, which fill the zone, and
+    the third falls back to E-Binpack outside it."""
+    C = TC
+    topo = C.small_topology(n_nodes=32, gpus_per_node=8, nodes_per_leaf=4)
+    state = C.ClusterState.create(topo, inference_zone_nodes=4)
+    qsch = C.QSCH(C.QuotaManager({"t0": {0: 10**6}}),
+                  C.RSCH(topo, rsch_config(PORT)),
+                  C.QSCHConfig(policy=C.QueuePolicy.BACKFILL))
+    sim = C.Simulator(state, qsch, C.SimConfig())
+    if telemetry is not None:
+        telemetry.attach(sim)
+        if detach:
+            telemetry.detach(sim)
+    jobs = [C.Job(uid=i, tenant="t0", gpu_type=0, n_pods=4, gpus_per_pod=4,
+                  kind=C.JobKind.INFER, gang=False, priority=C.PRIO_HIGH)
+            for i in range(1, 4)]
+    result = sim.run(jobs)
+    return {j.uid: [(p.node, tuple(p.gpu_indices)) for p in j.placement.pods]
+            for j in result.jobs}
+
+
+def test_pass_spans_and_counter_follow_the_zone_fallback():
+    """Attached, the service that overflows the zone records ``pass-zone``
+    then ``pass-general`` under its ``schedule``, each pass the parent of
+    its ``filter``; ``kant_placement_passes_total`` reads the zone pass
+    placed twice and failed once, and the general pass placed once."""
+    tel = TO.Telemetry(audit=False)
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        placed = _service_sim(tel)
+    finally:
+        if enabled:
+            gc.enable()
+    assert all(nd < 4 for nd, _ in placed[1] + placed[2])
+    assert all(nd >= 4 for nd, _ in placed[3])
+    nodes = _wall_tree(tel.tracer)
+    schedules = {n["args"]["uid"]: n for n in nodes
+                 if n["name"] == "schedule"}
+    assert [c["name"] for c in schedules[3]["children"]] == [
+        "pass-zone", "pass-general"]
+    for uid in (1, 2):
+        assert [c["name"] for c in schedules[uid]["children"]] == [
+            "pass-zone"]
+    for n in nodes:
+        if n["name"].startswith("pass-"):
+            assert n["parent"]["name"] == "schedule"
+            assert n["children"][0]["name"] == "filter"
+        if n["name"] in ("filter", "level1", "score", "devices"):
+            assert n["parent"]["name"].startswith("pass-")
+    reg = tel.registry
+    reg.collect()
+    passes = reg.counter("kant_placement_passes_total")
+    assert sorted((ls["pool"], ls["placed"]) for ls in passes.label_sets()) \
+        == [("general", "true"), ("zone", "false"), ("zone", "true")]
+    assert passes.value(pool="zone", placed="true") == 2
+    assert passes.value(pool="zone", placed="false") == 1
+    assert passes.value(pool="general", placed="true") == 1
+
+
+def test_detached_passes_record_no_span_and_place_alike():
+    """Attached then detached, the same run adds no span and no pass to
+    the telemetry, and places every service as the attached run does."""
+    attached = _service_sim(TO.Telemetry(audit=False))
+    tel = TO.Telemetry(audit=False)
+    assert _service_sim(tel, detach=True) == attached
+    tel.registry.collect()
+    assert not tel.span_count and not tel.tracer.wall
+    assert "kant_placement_passes_total" not in tel.registry.names()
