@@ -174,15 +174,24 @@ class _Staging:
 
     A pass fills the five column segments of the host input buffer with
     ``np.copyto`` (casting as ``np.ascontiguousarray(a, dtype=...)``
-    does), copies the used bytes up in one non-blocking copy, runs the
-    kernel into views of the device output buffer, copies that down in
-    one non-blocking copy and synchronises the current stream.  On the
+    does) and clears the mask's padding, copies the used bytes up in one
+    non-blocking copy, runs the kernel into views of the device output
+    buffer, copies that down in one non-blocking copy and synchronises
+    the current stream.  On the
     CPU the host buffers are the device buffers and nothing is copied.
     The returned arrays are fresh copies: callers keep scores by
     reference (RSCH's audit), and the buffers are overwritten by the
     next pass.  Typed views of the buffers are cached per padded size:
     building them costs more torch calls than the rest of a small pass
     (``chip_smoke.py``'s ``seam-time`` times the seam both ways).
+
+    Beside each layout's views sits its plan
+    (``kernels/node_score.py::staged_plan``): the views' raw addresses
+    and byte counts, checked once.  On a card with the ``"kernel"``
+    backend a pass goes through the plan, the copy up, the kernel and
+    the copy down in one foreign call on the current stream
+    (:meth:`launch`); elsewhere through ``kernels/ops.py`` and torch's
+    copies, checked at every pass.
     """
 
     MIN_BYTES = 4096
@@ -190,11 +199,20 @@ class _Staging:
     MAX_CACHED_LAYOUTS = 64
 
     def __init__(self, device) -> None:
+        import torch
+
+        from ..kernels import node_score
         self.device = device
         self.on_card = device.type != "cpu"
         self.host_in = self.dev_in = self.host_out = self.dev_out = None
         self._np_in = self._np_out = None
         self._layouts: dict = {}
+        self.plans: dict = {}
+        self._kernels = node_score
+        # the raw handle of the device's current stream, a caller's
+        # ``torch.cuda.stream(...)`` included: read at every pass
+        self._stream = torch._C._cuda_getCurrentRawStream if self.on_card \
+            else None
 
     def _grown(self, buf, nbytes: int, on_device: bool):
         import torch
@@ -214,6 +232,7 @@ class _Staging:
         if host_in is self.host_in and host_out is self.host_out:
             return
         self._layouts.clear()
+        self.plans.clear()
         self.host_in, self.host_out = host_in, host_out
         self._np_in, self._np_out = host_in.numpy(), host_out.numpy()
         if self.on_card:
@@ -226,7 +245,8 @@ class _Staging:
         """Typed views of the buffers for a pass over ``n_pad`` nodes:
         (host columns, device columns, device outputs, host outputs,
         (device, host) bytes to copy up, (host, device) bytes to copy
-        down), cached per ``(n_pad, with_slots)``."""
+        down), cached per ``(n_pad, with_slots)``, with the plan of the
+        same views in ``plans`` under that key."""
         import torch
         key = (n_pad, with_slots)
         views = self._layouts.get(key)
@@ -252,11 +272,24 @@ class _Staging:
                                     out_dtypes)
         if len(self._layouts) >= self.MAX_CACHED_LAYOUTS:
             self._layouts.clear()
+            self.plans.clear()
         views = (host_cols, dev_cols, dev_outs, host_outs,
                  (self.dev_in[:in_bytes], self.host_in[:in_bytes]),
                  (self.host_out[:out_bytes], self.dev_out[:out_bytes]))
         self._layouts[key] = views
+        self.plans[key] = self._kernels.staged_plan(views[4], dev_cols,
+                                                    dev_outs, views[5])
         return views
+
+    def launch(self, views, with_slots: bool, request: int,
+               gpus_per_node: int, weights: ScoreWeights) -> None:
+        """Enqueue a pass over ``views`` on a card through their plan:
+        the copy up, the kernel and the copy down in one foreign call on
+        the current stream."""
+        self._kernels.staged_launch(
+            self.plans[len(views[0][0]), with_slots], request,
+            gpus_per_node, weights.used, weights.fit, weights.group,
+            weights.topo, self._stream(self.device.index))
 
 
 _STAGING: dict = {}
@@ -264,7 +297,11 @@ _STAGING: dict = {}
 
 def _staging_for(device) -> _Staging:
     """The staging pair of ``device`` (``None`` = CUDA), made at first
-    use; a CUDA device without an index means the current one."""
+    use; a CUDA device without an index means the one current then.
+    Memoised under ``device`` as given, so that a pass resolves nothing."""
+    st = _STAGING.get(device)
+    if st is not None:
+        return st
     import torch
 
     from ..device import resolve_device
@@ -274,6 +311,7 @@ def _staging_for(device) -> _Staging:
     st = _STAGING.get(dev)
     if st is None:
         st = _STAGING[dev] = _Staging(dev)
+    _STAGING[device] = st
     return st
 
 
@@ -309,7 +347,8 @@ def _staged_pass(columns, request: int, gpus_per_node: int,
     :class:`_Staging`.  Returns owned host arrays.  Inside an attached
     RSCH's ``schedule`` (:class:`probed`) the pass runs in its
     telemetry's spans: ``seam``, with ``seam-pack``, ``seam-launch`` and
-    ``seam-wait``."""
+    ``seam-wait``, and is tallied with its launch path (direct through
+    the plan, or checked through ``ops``)."""
     probe = _probe
     if probe is None:
         st = _staging_for(device)
@@ -323,29 +362,38 @@ def _staged_pass(columns, request: int, gpus_per_node: int,
         with probe.span("seam-pack"):
             views = _pack(st, columns, with_slots)
         with probe.span("seam-launch"):
-            _launch(st, views, with_slots, request, gpus_per_node,
-                    weights, backend)
+            direct = _launch(st, views, with_slots, request,
+                             gpus_per_node, weights, backend)
         with probe.span("seam-wait"):
             _wait(st)
         n = len(columns[0])
-        probe.seam_done(n, views[4][0].numel(), views[5][0].numel())
+        probe.seam_done(n, views[4][0].numel(), views[5][0].numel(),
+                        direct)
         return _owned(views, n, with_slots)
 
 
 def _pack(st: _Staging, columns, with_slots: bool):
     """Fill the host input buffer's column segments; returns the
-    staging's views for the pass (see :meth:`_Staging.layout`)."""
+    staging's views for the pass (see :meth:`_Staging.layout`).  Only
+    the mask's padding is cleared: a padded node with mask 0 scores
+    ``NEG_INF`` with 0 slots whatever its other columns still hold."""
     n = len(columns[0])
     views = st.layout(-(-n // NODE_PAD) * NODE_PAD, with_slots)
     for dst, src in zip(views[0], columns):
         np.copyto(dst[:n], src, casting="unsafe")
-        dst[n:] = 0
+    views[0][2][n:] = False
     return views
 
 
 def _launch(st: _Staging, views, with_slots: bool, request: int,
-            gpus_per_node: int, weights: ScoreWeights, backend: str) -> None:
-    """Enqueue the copy up, the kernel and the copy down."""
+            gpus_per_node: int, weights: ScoreWeights, backend: str) -> bool:
+    """Enqueue the copy up, the kernel and the copy down: in one call
+    through the layout's plan on a card with the ``"kernel"`` backend
+    (returns True), else through ``ops`` (checked at every pass) and
+    torch's copies (returns False)."""
+    if st.on_card and backend == "kernel":
+        st.launch(views, with_slots, request, gpus_per_node, weights)
+        return True
     from ..kernels import ops  # deferred: keep the np path torch-free
     _, dev_cols, dev_outs, _, up, down = views
     kw = dict(request=request, gpus_per_node=gpus_per_node,
@@ -358,6 +406,7 @@ def _launch(st: _Staging, views, with_slots: bool, request: int,
         ops.node_scores(*dev_cols, out=dev_outs[0], **kw)
     if st.on_card:
         down[0].copy_(down[1], non_blocking=True)
+    return False
 
 
 def _wait(st: _Staging) -> None:

@@ -4,6 +4,8 @@
 //   _score_kernel        (launched by node_scores_pallas)       -> node_scores_launch
 //   _score_slots_kernel  (launched by node_scores_slots_pallas) -> node_scores_slots_launch
 // Both share one __device__ body, as the TPU kernels share one formula.
+// node_scores_staged_launch runs either one between the packed seam's
+// copy up and copy down, in one call from the host.
 //
 // Per node i:
 //   valid    = mask[i] && free[i] >= request
@@ -225,6 +227,63 @@ extern "C" int node_scores_slots_launch(const void* free_gpus,
                                         void* stream) {
   return launch<true>(free_gpus, used_gpus, mask, gload, topo, score, slots,
                       n, request, g, w_used, w_fit, w_group, w_topo, stream);
+}
+
+// The addresses and byte counts of one staging layout of the packed seam
+// (core/scoring.py::_Staging), as kernels/node_score.py::StagedPlan lays
+// them out: checked once, when the layout is built, and read by every
+// pass over it.
+struct StagedPlan {
+  const void* host_in;   // pinned host input, copied up from
+  void* dev_in;          // device input, copied up to
+  int64_t in_bytes;
+  const void* cols[5];   // free, used, mask, gload, topo: inside dev_in
+  void* score;           // inside dev_out
+  void* slots;           // inside dev_out; null for the score-only pass
+  const void* dev_out;   // device output, copied down from
+  void* host_out;        // pinned host output, copied down to
+  int64_t out_bytes;
+  int64_t n;             // nodes of the pass (the padded count)
+  int64_t device;        // the card every address lies on
+};
+
+// One pass of the packed seam in one call: the packed columns up, the
+// pass over them (launch<kSlots>, as the two entries above), the packed
+// outputs down, all enqueued on `stream` in that order.  Returns the
+// first CUDA error; the caller waits on the stream.  The card of the plan
+// is made current for the call and the caller's restored after it.
+extern "C" int node_scores_staged_launch(const StagedPlan* plan,
+                                         int32_t request, float g,
+                                         float w_used, float w_fit,
+                                         float w_group, float w_topo,
+                                         void* stream) {
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int dev = static_cast<int>(plan->device);
+  if (prev != dev && (err = cudaSetDevice(dev)) != cudaSuccess)
+    return static_cast<int>(err);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = cudaMemcpyAsync(plan->dev_in, plan->host_in,
+                        static_cast<size_t>(plan->in_bytes),
+                        cudaMemcpyHostToDevice, s);
+  if (err == cudaSuccess && plan->n > 0) {
+    const void* const* c = plan->cols;
+    err = static_cast<cudaError_t>(
+        plan->slots != nullptr
+            ? launch<true>(c[0], c[1], c[2], c[3], c[4], plan->score,
+                           plan->slots, plan->n, request, g, w_used, w_fit,
+                           w_group, w_topo, stream)
+            : launch<false>(c[0], c[1], c[2], c[3], c[4], plan->score,
+                            nullptr, plan->n, request, g, w_used, w_fit,
+                            w_group, w_topo, stream));
+  }
+  if (err == cudaSuccess)
+    err = cudaMemcpyAsync(plan->host_out, plan->dev_out,
+                          static_cast<size_t>(plan->out_bytes),
+                          cudaMemcpyDeviceToHost, s);
+  if (prev != dev) cudaSetDevice(prev);
+  return static_cast<int>(err);
 }
 
 // An empty kernel on the same launch path: the time of a launch that

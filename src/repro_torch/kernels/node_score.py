@@ -16,6 +16,13 @@ launches the kernel on the current stream, and raises if anything is off
 or the launch is refused: there is no fallback.  ``launches`` on each
 wrapper counts kernel launches and nothing else.  :func:`noop` launches
 an empty kernel on the same path, to time the launch floor.
+
+The packed seam of ``core/scoring.py`` makes the same checks once per
+staging layout instead of once per pass: :func:`staged_plan` checks the
+layout's buffers and views and fixes their addresses, and
+:func:`staged_launch` enqueues a whole pass through the plan (the copy
+up, the kernel, the copy down) in one foreign call, counted on the
+wrapper whose kernel it runs.
 """
 
 from __future__ import annotations
@@ -55,8 +62,9 @@ def build() -> ctypes.CDLL:
     lib.node_scores_slots_launch.argtypes = [ptr] * 7 + [i64, i32] + [
         f32] * 5 + [ptr]
     lib.node_score_noop_launch.argtypes = [ptr]
+    lib.node_scores_staged_launch.argtypes = [ptr, i32] + [f32] * 5 + [ptr]
     for fn in (lib.node_scores_launch, lib.node_scores_slots_launch,
-               lib.node_score_noop_launch):
+               lib.node_score_noop_launch, lib.node_scores_staged_launch):
         fn.restype = ctypes.c_int
     build_seconds = time.perf_counter() - t0
     _lib = lib
@@ -202,3 +210,107 @@ def node_scores_slots(free: torch.Tensor, used: torch.Tensor,
 
 node_scores.launches = 0
 node_scores_slots.launches = 0
+
+
+class StagedPlan(ctypes.Structure):
+    """One staging layout of the packed seam as ``node_scores_staged_launch``
+    reads it (``struct StagedPlan`` in ``csrc/node_score.cu``): the raw
+    addresses and byte counts of the host and device input ranges, the
+    five device columns, the device outputs (``slots`` 0 for the
+    score-only pass) and the device and host output ranges.  Made by
+    :func:`staged_plan`; ``address`` is where the C side reads it and
+    ``counter`` the wrapper its passes count on."""
+
+    _fields_ = [("host_in", ctypes.c_void_p), ("dev_in", ctypes.c_void_p),
+                ("in_bytes", ctypes.c_int64),
+                ("cols", ctypes.c_void_p * 5),
+                ("score", ctypes.c_void_p), ("slots", ctypes.c_void_p),
+                ("dev_out", ctypes.c_void_p), ("host_out", ctypes.c_void_p),
+                ("out_bytes", ctypes.c_int64), ("n", ctypes.c_int64),
+                ("device", ctypes.c_int64)]
+
+
+def _check_range(t: torch.Tensor, dev: torch.device, pinned: bool,
+                 name: str) -> None:
+    """Raise unless ``t`` is a contiguous 1-D uint8 range on ``dev``,
+    in pinned memory where ``pinned``."""
+    _check_like(dev, t.shape[0] if t.dim() == 1 else -1,
+                ((t, torch.uint8, name),))
+    if pinned and not t.is_pinned():
+        raise ValueError(f"{name} must be in pinned host memory")
+
+
+def _check_inside(views, rng: torch.Tensor, name: str) -> None:
+    """Raise unless every view lies inside the byte range ``rng`` and
+    starts on a 16-byte boundary (the kernel's vector path)."""
+    lo = rng.data_ptr()
+    hi = lo + rng.numel()
+    for i, t in enumerate(views):
+        a = t.data_ptr()
+        if a < lo or a + t.numel() * t.element_size() > hi:
+            raise ValueError(f"{name}[{i}] lies outside its copied range")
+        if a % 16:
+            raise ValueError(f"{name}[{i}] is not 16-byte aligned")
+
+
+def staged_plan(up, cols, outs, down) -> StagedPlan:
+    """The plan of one staging layout: ``up`` the (device, host) byte
+    ranges copied up, ``cols`` the five device columns inside ``up[0]``,
+    ``outs`` the device scores, or (scores, slots), inside ``down[1]``,
+    ``down`` the (host, device) byte ranges copied down.
+
+    Checks once what every pass through the plan relies on, as
+    :func:`node_scores_slots` and :func:`node_scores` check their
+    arguments at every call: the columns' and the outputs' dtypes,
+    lengths, contiguity and device (:func:`_check`, :func:`_check_like`),
+    and besides that each range's dtype, device and (on a card) pinned
+    host memory, equal lengths each way, and every view inside its range
+    on a 16-byte boundary.  Raises ``TypeError`` or ``ValueError``."""
+    n = _check(*cols)
+    dev = cols[0].device
+    if len(outs) == 2:
+        _check_out_pair(dev, n, outs)
+    else:
+        _check_like(dev, n, ((outs[0], torch.float32, "out"),))
+    on_card = dev.type != "cpu"
+    host = torch.device("cpu")
+    for (t, where, name) in ((up[0], dev, "up[0]"), (up[1], host, "up[1]"),
+                             (down[0], host, "down[0]"),
+                             (down[1], dev, "down[1]")):
+        _check_range(t, where, on_card and where == host, name)
+    for pair, name in ((up, "up"), (down, "down")):
+        if pair[0].numel() != pair[1].numel():
+            raise ValueError(f"the {name} ranges differ in length")
+    _check_inside(cols, up[0], "cols")
+    _check_inside(outs, down[1], "outs")
+    plan = StagedPlan(host_in=up[1].data_ptr(), dev_in=up[0].data_ptr(),
+                      in_bytes=up[0].numel(), score=outs[0].data_ptr(),
+                      slots=outs[1].data_ptr() if len(outs) == 2 else None,
+                      dev_out=down[1].data_ptr(),
+                      host_out=down[0].data_ptr(),
+                      out_bytes=down[0].numel(), n=n,
+                      device=dev.index if on_card else -1)
+    plan.cols[:] = [t.data_ptr() for t in cols]
+    plan.address = ctypes.addressof(plan)
+    plan.counter = node_scores_slots if len(outs) == 2 else node_scores
+    return plan
+
+
+def staged_launch(plan: StagedPlan, request: int, gpus_per_node: int,
+                  w_used: float, w_fit: float, w_group: float,
+                  w_topo: float, stream: int) -> None:
+    """Enqueue one pass of the packed seam through ``plan`` on ``stream``
+    (a ``cudaStream_t`` as an int): the copy up, the kernel over the
+    plan's columns, the copy down, in one foreign call.  Counted as one
+    launch of the wrapper whose kernel it runs; raises if the request is
+    not positive or CUDA refuses any of the three."""
+    if request <= 0:
+        raise ValueError(f"request must be positive, got {request}")
+    err = build().node_scores_staged_launch(
+        plan.address, int(request), float(gpus_per_node), float(w_used),
+        float(w_fit), float(w_group), float(w_topo), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"node_scores_staged_launch failed: CUDA error {err}")
+    if plan.n:
+        plan.counter.launches += 1

@@ -219,6 +219,126 @@ def test_packed_seam_on_the_card_equals_numpy(cuda, backend):
     assert st.dev_in.device.type == "cuda"
 
 
+# -- The seam's direct path: one call through the layout's plan --------------
+def _checked_pass(host, request, g, w, with_slots, cuda):
+    """The same pass through the checked ``ops`` path: the five columns
+    cast as the seam casts them, sent up one by one, the kernel wrapper."""
+    cols = tuple(torch.from_numpy(np.ascontiguousarray(a, dtype=dt)).to(cuda)
+                 for a, dt in zip(host, scoring._IN_DTYPES))
+    kw = dict(request=request, gpus_per_node=g, weights=w)
+    if with_slots:
+        s, sl = ops.node_scores_and_slots(*cols, **kw)
+        return s.cpu().numpy(), sl.cpu().numpy().astype(np.int64)
+    return ops.node_scores(*cols, **kw).cpu().numpy()
+
+
+@pytest.mark.parametrize("with_slots", [False, True])
+@pytest.mark.parametrize("n", [1, 16, 33, 10_000, 1_000_000])
+def test_direct_seam_pass_bit_equal_checked_path(cuda, n, with_slots):
+    """A pass through the layout's plan (the copy up, the kernel and the
+    copy down in one call) returns the bits of the checked ``ops`` path
+    and of numpy, each pass counted once on its kernel's wrapper."""
+    w = scoring.ScoreWeights(0.3, -0.2, 1.1, -0.7)
+    host, _ = _columns(n, 8, seed=n + with_slots, device=cuda)
+    fn = (scoring.compute_node_scores_and_slots if with_slots
+          else scoring.compute_node_scores)
+    counter = (node_score.node_scores_slots if with_slots
+               else node_score.node_scores)
+    for request in (1, 2, 4, 8):
+        before = counter.launches
+        got = fn(*host, request, 8, w, backend="kernel")
+        assert counter.launches == before + 1
+        want = _checked_pass(host, request, 8, w, with_slots, cuda)
+        want_np = scoring.node_scores_np(*host, request, 8, w)
+        if with_slots:
+            (got, got_slots), (want, want_slots) = got, want
+            np.testing.assert_array_equal(got_slots, want_slots)
+            np.testing.assert_array_equal(got_slots,
+                                          _slots_np(host, request))
+        assert got.flags.owndata
+        np.testing.assert_array_equal(got.view(np.int32),
+                                      want.view(np.int32))
+        np.testing.assert_array_equal(got.view(np.int32),
+                                      want_np.view(np.int32))
+    st = scoring._staging_for(None)
+    n_pad = -(-n // scoring.NODE_PAD) * scoring.NODE_PAD
+    plan = st.plans[n_pad, with_slots]
+    assert plan.device == st.device.index and plan.n == n_pad
+    assert plan.host_in == st.host_in.data_ptr()
+    assert plan.dev_in == st.dev_in.data_ptr()
+
+
+def test_direct_seam_pass_is_one_copy_up_one_kernel_one_copy_down(cuda):
+    from torch.profiler import ProfilerActivity, profile
+    w = scoring.E_BINPACK
+    host, _ = _columns(4097, 8, seed=9, device=cuda)
+    scoring.compute_node_scores_and_slots(*host, 2, 8, w)     # built, warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        scoring.compute_node_scores_and_slots(*host, 2, 8, w)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if "CUDA" in str(e.device_type) for _ in range(e.count)]
+    assert sum("memcpy" in k.lower() and "HtoD" in k for k in names) == 1
+    assert sum("memcpy" in k.lower() and "DtoH" in k for k in names) == 1
+    assert sum("node_score" in k for k in names) == 1
+    assert not any("noop" in k for k in names)
+
+
+def test_direct_seam_pass_runs_on_the_callers_stream(cuda, monkeypatch):
+    """Under ``torch.cuda.stream(side)`` the one call is enqueued on the
+    side stream, and the pass still waits for its own results."""
+    streams = []
+    launch = node_score.staged_launch
+
+    def spy(*args):
+        streams.append(args[-1])
+        return launch(*args)
+
+    monkeypatch.setattr(node_score, "staged_launch", spy)
+    w = scoring.E_SPREAD
+    host, _ = _columns(100_000, 8, seed=10, device=cuda)
+    want = scoring.node_scores_np(*host, 1, 8, w)
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        # keep the side stream busy so a pass that did not wait on it
+        # would read its outputs before they are written
+        torch.cuda._sleep(1_000_000)
+        s, sl = scoring.compute_node_scores_and_slots(*host, 1, 8, w)
+    s0, _ = scoring.compute_node_scores_and_slots(*host, 1, 8, w)
+    assert streams == [side.cuda_stream,
+                       torch.cuda.current_stream().cuda_stream]
+    for got in (s, s0):
+        np.testing.assert_array_equal(got.view(np.int32),
+                                      want.view(np.int32))
+    np.testing.assert_array_equal(sl, _slots_np(host, 1))
+
+
+def test_direct_seam_pass_after_the_buffers_grow(cuda):
+    """Small, then large enough to regrow every buffer, then small: each
+    pass reads the bytes of its own table through a fresh plan."""
+    w = scoring.ScoreWeights(0.3, -0.2, 1.1, -0.7)
+    st = scoring._staging_for(None)
+    sizes = [33, None, 33, 17]
+    for i, n in enumerate(sizes):
+        if n is None:          # twice what the input buffer holds now
+            n = 2 * st.host_in.numel() // 17 + 1000
+        host, _ = _columns(n, 6, seed=n * 7 + i, device=cuda)
+        caps = (st.host_in.numel(), st.dev_in.numel())
+        s, sl = scoring.compute_node_scores_and_slots(*host, 2, 6, w)
+        np.testing.assert_array_equal(
+            s.view(np.int32),
+            scoring.node_scores_np(*host, 2, 6, w).view(np.int32))
+        np.testing.assert_array_equal(sl, _slots_np(host, 2))
+        n_pad = -(-n // scoring.NODE_PAD) * scoring.NODE_PAD
+        plan = st.plans[n_pad, True]
+        assert plan.host_in == st.host_in.data_ptr()
+        assert plan.dev_out == st.dev_out.data_ptr()
+        if st.host_in.numel() != caps[0]:
+            assert len(st.plans) == 1 and st.dev_in.numel() > caps[1]
+
+
 def test_rsch_on_the_card_matches_host_numpy(cuda):
     import repro_torch.core as T
     from repro_torch.core.snapshot import FullSnapshotter
@@ -690,13 +810,19 @@ def test_weight_change_reaches_the_launched_kernel(cuda, monkeypatch):
     """Score-weight handles move mid-run: the card's run decides and logs
     what numpy's does, and the kernel is launched with the new weights."""
     launched = []
-    orig = node_score._launch
+    orig, orig_staged = node_score._launch, node_score.staged_launch
 
     def launch(fn, cols, outs, n, request, g, weights):
         launched.append(tuple(weights))
         return orig(fn, cols, outs, n, request, g, weights)
 
+    def staged(plan, request, g, w_used, w_fit, w_group, w_topo, stream):
+        launched.append((w_used, w_fit, w_group, w_topo))
+        return orig_staged(plan, request, g, w_used, w_fit, w_group, w_topo,
+                           stream)
+
     monkeypatch.setattr(node_score, "_launch", launch)
+    monkeypatch.setattr(node_score, "staged_launch", staged)
     card = _tuned_run("kernel")
     assert card == _tuned_run("np")
     moved = [c for c in card[2] if c[0].startswith("train-")
@@ -764,6 +890,22 @@ def test_attached_run_on_the_card_matches_host_numpy(cuda, batched_gang):
                                     rel_tol=1e-6, abs_tol=1e-9)
                 sums += 1
     assert sums > 0 or not batched_gang
+
+
+def test_card_seam_passes_are_counted_direct(cuda):
+    """Every seam pass of an attached run on the card takes the plan:
+    ``kant_seam_launches_total{path="direct"}`` equals
+    ``kant_seam_calls_total``, none is ``checked``, and each counts one
+    launch on its kernel's wrapper."""
+    before = node_score.node_scores_slots.launches
+    _, tel = _attached_run("kernel")
+    tel.registry.collect()
+    calls = tel.registry.counter("kant_seam_calls_total").value()
+    paths = tel.registry.counter("kant_seam_launches_total")
+    assert calls > 0
+    assert paths.value(path="direct") == calls
+    assert paths.value(path="checked") == 0
+    assert node_score.node_scores_slots.launches - before >= calls
 
 
 def test_seam_spans_enclose_their_runtime_calls_on_the_profiler_clock(cuda):

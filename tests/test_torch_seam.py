@@ -6,9 +6,15 @@ run the pass into one output buffer (one copy down) and return owned
 host arrays.  On ``device="cpu"`` the same packing runs without pinning
 and the wrapper takes the plain version on the packed views, so these
 tests hold the layout, the casts and the padding against the reference
-package's numpy path bit for bit.  The card runs the same seam in
-``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
+package's numpy path bit for bit.  Each layout's plan (the addresses
+and byte counts the card's one-call pass reads) is built here too and
+held against ``segment_offsets``; the CPU never launches through it.
+The card runs the same seam in ``tests/test_torch_cuda.py`` and
+``chip_smoke.py``.
 """
+
+import contextlib
+import ctypes
 
 import numpy as np
 import pytest
@@ -202,3 +208,120 @@ def test_out_is_checked_and_filled_on_the_cpu():
     with pytest.raises(TypeError, match=r"out\[1\]"):
         node_score.node_scores_slots(*cols, **kw,
                                      out=(pair[0], pair[1].long()))
+
+
+# -- The layout's plan: what the card's one-call pass reads --------------------
+@pytest.mark.parametrize("with_slots", [False, True])
+@pytest.mark.parametrize("n_pad", [16, 48, 10_000])
+def test_plan_offsets_and_bytes_equal_segment_offsets(n_pad, with_slots):
+    st = scoring._Staging(torch.device("cpu"))
+    st.layout(n_pad, with_slots)
+    plan = st.plans[n_pad, with_slots]
+    in_offs, in_bytes = scoring.segment_offsets(n_pad, scoring._IN_DTYPES)
+    out_dtypes = scoring._OUT_DTYPES[:1 + with_slots]
+    out_offs, out_bytes = scoring.segment_offsets(n_pad, out_dtypes)
+    assert plan.n == n_pad and plan.device == -1
+    assert (plan.in_bytes, plan.out_bytes) == (in_bytes, out_bytes)
+    assert plan.dev_in == plan.host_in == st.host_in.data_ptr()
+    assert plan.dev_out == plan.host_out == st.host_out.data_ptr()
+    assert [c - plan.dev_in for c in plan.cols] == list(in_offs)
+    outs = [plan.score] + ([plan.slots] if with_slots else [])
+    assert [o - plan.dev_out for o in outs] == list(out_offs)
+    assert with_slots or plan.slots is None
+    assert plan.address == ctypes.addressof(plan)
+    assert plan.counter is (node_score.node_scores_slots if with_slots
+                            else node_score.node_scores)
+
+
+def test_plans_are_dropped_with_their_views():
+    """A buffer that grows drops every plan with the views (their
+    addresses are gone), and so does a full layout cache."""
+    st = scoring._Staging(torch.device("cpu"))
+    st.layout(16, True)
+    st.layout(16, False)
+    assert set(st.plans) == {(16, True), (16, False)}
+    old = st.plans[16, True]
+    st.layout(100_000, True)                    # grows both buffers
+    assert set(st.plans) == {(100_000, True)}
+    st.layout(16, True)
+    assert st.plans[16, True] is not old
+    assert st.plans[16, True].dev_in == st.host_in.data_ptr()
+    for i in range(st.MAX_CACHED_LAYOUTS - len(st.plans)):
+        st.layout(32 + 16 * i, False)
+    assert len(st.plans) == len(st._layouts) == st.MAX_CACHED_LAYOUTS
+    bufs = (st.host_in, st.host_out)
+    st.layout(80_000, False)                    # full: both cleared
+    assert st.host_in is bufs[0] and st.host_out is bufs[1]  # none grew
+    assert set(st.plans) == set(st._layouts) == {(80_000, False)}
+
+
+def test_plan_rejects_views_it_cannot_launch_on():
+    buf = torch.zeros(4096, dtype=torch.uint8)
+    up = down = (buf[:2048], buf[:2048])
+    cols = (buf[0:64].view(torch.int32), buf[128:192].view(torch.int32),
+            buf[256:272].view(torch.bool), buf[384:448].view(torch.float32),
+            buf[512:576].view(torch.float32))
+    outs = (buf[1024:1088].view(torch.float32),)
+    assert node_score.staged_plan(up, cols, outs, down).n == 16
+    with pytest.raises(ValueError, match="outside"):
+        node_score.staged_plan((buf[:256], buf[:256]), cols, outs, down)
+    shifted = (buf[4:68].view(torch.int32),) + cols[1:]
+    with pytest.raises(ValueError, match="aligned"):
+        node_score.staged_plan(up, shifted, outs, down)
+    with pytest.raises(TypeError, match="used"):
+        node_score.staged_plan(up, (cols[0], cols[3]) + cols[2:], outs,
+                               down)
+    with pytest.raises(ValueError, match="differ"):
+        node_score.staged_plan((buf[:2048], buf[:1024]), cols, outs, down)
+    with pytest.raises(TypeError, match=r"up\[1\]"):
+        node_score.staged_plan((buf[:2048], buf[:2048].view(torch.int32)),
+                               cols, outs, down)
+
+
+def test_staging_is_memoised_by_the_device_as_given(monkeypatch):
+    """A pass resolves its device once: the staging of ``"cpu"`` and of
+    ``torch.device("cpu")`` is one, made at the first pass, and the
+    passes after it reuse it without resolving the device again."""
+    monkeypatch.setattr(scoring, "_STAGING", {})
+    table = _table(33, 8, seed=6)
+    scoring.compute_node_scores_and_slots(*table, 2, 8, WEIGHTS["mixed"],
+                                          device="cpu")
+    st = scoring._staging_for("cpu")
+    assert scoring._staging_for(torch.device("cpu")) is st
+    import repro_torch.device as device_mod
+    monkeypatch.setattr(device_mod, "resolve_device", None)
+    for dev in ("cpu", torch.device("cpu")):
+        for backend in BACKENDS:
+            s, sl = scoring.compute_node_scores_and_slots(
+                *table, 2, 8, WEIGHTS["mixed"], backend=backend, device=dev)
+            want, want_slots = _want(table, 2, 8, WEIGHTS["mixed"])
+            np.testing.assert_array_equal(_bits(s), _bits(want))
+            np.testing.assert_array_equal(sl, want_slots)
+    assert scoring._staging_for("cpu") is st
+    assert set(scoring._STAGING.values()) == {st}
+
+
+class _Tally:
+    """A probe that opens no span and keeps each pass's launch path."""
+
+    def __init__(self):
+        self.direct = []
+
+    def span(self, name):
+        return contextlib.nullcontext()
+
+    def seam_done(self, rows, up_bytes, down_bytes, direct):
+        self.direct.append(direct)
+
+
+def test_cpu_passes_are_tallied_checked():
+    tally = _Tally()
+    table = _table(40, 8, seed=7)
+    with scoring.probed(tally):
+        for backend in BACKENDS:
+            scoring.compute_node_scores_and_slots(
+                *table, 2, 8, WEIGHTS["e_spread"], backend=backend,
+                device="cpu")
+            scoring.compute_node_scores(*table, 2, 8, WEIGHTS["e_spread"],
+                                        backend=backend, device="cpu")
+    assert tally.direct == [False] * 4
