@@ -110,10 +110,9 @@ Phases, each printed as one JSON line on stdout:
              types; beside each kernel error, the error of the plain
              mirror of its algorithm (``wkv6_chunked_ref``), so that a
              kernel fault and an algorithm fault are told apart;
-7b. wkv-time    — the chunked kernels and the serial step kernel they
-             replaced, in turns (step, chunked, chunked, step), at
-             (1, T, 40, 64) f32 for T ∈ {64, 445, 512, 2048, 4096}, each
-             beside its bytes bound; then the chunked pair's device time
+7b. wkv-time    — the chunked kernels, held to their plain version
+             (``wkv6_ref``) and timed beside their bytes bound, at
+             (1, T, 40, 64) f32 for T ∈ {64, 445, 512, 2048, 4096}; then the chunked pair's device time
              split between its two kernels (torch.profiler) at the serve
              shape, and one head alone at T = 4096 against forty (a chunk
              step that costs the same is bound by latency, not by the
@@ -4205,31 +4204,23 @@ def main() -> int:
     check(not bad, f"wkv6 kernel disagrees with its plain version while "
                    f"its algorithm's mirror agrees (a kernel fault): {bad}")
 
-    # -- 7b. wkv-time: chunked kernel against the step kernel, in turns --
+    # -- 7b. wkv-time: the chunked kernel against its bound ------------
     wkv_time = []
     for T in WKV_TIME_T:
         shape = WKV_SERVE_SHAPE[:1] + (T,) + WKV_SERVE_SHAPE[2:]
         args = wkv_inputs(np, torch, shape, (f32,) * 4, seed=T)
         co, csT = wkv6.wkv6(*args)
-        so, ssT = wkv6.wkv6_step(*args)
+        po, psT = wkv6_ref(*args)
         torch.cuda.synchronize()
-        rel = max(rel_err(co, so), rel_err(csT, ssT))
+        rel = max(rel_err(co, po), rel_err(csT, psT))
         check(rel <= WKV_TOL_LONG,
-              f"chunked and step kernels differ by {rel} at T = {T}")
-        turns = {"step": [], "chunked": []}
-        for name in ("step", "chunked", "chunked", "step"):
-            fn = wkv6.wkv6_step if name == "step" else wkv6.wkv6
-            turns[name].append(device_ms(torch, lambda: fn(*args), 10,
-                                         flush))
+              f"chunked kernel and plain version differ by {rel} at "
+              f"T = {T}")
+        chunk_ms = device_ms(torch, lambda: wkv6.wkv6(*args), 10, flush)
         b_ms, b_by = wkv_bound_ms(shape, 4 * 4)
-        step_ms = sum(turns["step"]) / 2
-        chunk_ms = sum(turns["chunked"]) / 2
-        wkv_time.append({"shape": shape, "step_ms": step_ms,
-                         "chunked_ms": chunk_ms, "turns": turns,
+        wkv_time.append({"shape": shape, "chunked_ms": chunk_ms,
                          "bound_ms": b_ms, "bound_by": b_by,
-                         "speedup": step_ms / chunk_ms,
                          "chunked_over_bound": chunk_ms / b_ms,
-                         "chunked_faster": chunk_ms < step_ms,
                          "max_rel_diff": rel})
         emit({"phase": "wkv-time", **wkv_time[-1]})
     args = wkv_inputs(np, torch, WKV_SERVE_SHAPE, (f32,) * 4)
@@ -4267,11 +4258,9 @@ def main() -> int:
     node_score.node_scores.launches = 0
     node_score.node_scores_slots.launches = 0
     wkv6.wkv6.launches = 0
-    wkv6.wkv6_step.launches = 0
     engine, finished, serve_wall = engine_run(
         [(p, SERVE_NEW) for p in prompts], timings)
     serve_launches = {"wkv6": wkv6.wkv6.launches,
-                      "wkv6_step": wkv6.wkv6_step.launches,
                       "node_scores": node_score.node_scores.launches,
                       "node_scores_slots":
                           node_score.node_scores_slots.launches}
@@ -4280,8 +4269,6 @@ def main() -> int:
     check(serve_launches["wkv6"] == cfg.n_layers * engine.prefill_calls,
           f"wkv6 launches {serve_launches['wkv6']} != {cfg.n_layers} x "
           f"{engine.prefill_calls} prefills")
-    check(serve_launches["wkv6_step"] == 0,
-          "serve path launched the step kernel")
     check(len(finished) == SERVE_REQUESTS
           and all(len(r.generated) == SERVE_NEW for r in finished),
           "serve left requests unfinished")
@@ -4375,7 +4362,7 @@ def main() -> int:
     free_memory(torch)
 
     counters = (node_score.node_scores, node_score.node_scores_slots,
-                wkv6.wkv6, wkv6.wkv6_step)
+                wkv6.wkv6)
     # -- 9b. fabric: routers, build_engine, demand to the autoscaler -----
     fabric = run_fabric(torch, np, dev, counters, smi)
     free_memory(torch)
@@ -4497,7 +4484,7 @@ def main() -> int:
          "launches_examples": by_example("wkv6"),
          "max_abs_err": max(c["max_abs_err"] for c in sweep),
          "max_rel_err": max(c["max_rel_err"] for c in sweep),
-         "ms": w_time["chunked_ms"], "step_ms": w_time["step_ms"],
+         "ms": w_time["chunked_ms"],
          "plain_ms": w_plain, "bound_ms": w_time["bound_ms"],
          "bound_by": w_time["bound_by"], "library_ms": None,
          "launch_floor_ms": launch_floor_ms,

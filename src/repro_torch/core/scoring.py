@@ -347,8 +347,7 @@ def _staged_pass(columns, request: int, gpus_per_node: int,
     :class:`_Staging`.  Returns owned host arrays.  Inside an attached
     RSCH's ``schedule`` (:class:`probed`) the pass runs in its
     telemetry's spans: ``seam``, with ``seam-pack``, ``seam-launch`` and
-    ``seam-wait``, and is tallied with its launch path (direct through
-    the plan, or checked through ``ops``)."""
+    ``seam-wait``, and is tallied."""
     probe = _probe
     if probe is None:
         st = _staging_for(device)
@@ -362,13 +361,12 @@ def _staged_pass(columns, request: int, gpus_per_node: int,
         with probe.span("seam-pack"):
             views = _pack(st, columns, with_slots)
         with probe.span("seam-launch"):
-            direct = _launch(st, views, with_slots, request,
-                             gpus_per_node, weights, backend)
+            _launch(st, views, with_slots, request, gpus_per_node,
+                    weights, backend)
         with probe.span("seam-wait"):
             _wait(st)
         n = len(columns[0])
-        probe.seam_done(n, views[4][0].numel(), views[5][0].numel(),
-                        direct)
+        probe.seam_done(n, views[4][0].numel(), views[5][0].numel())
         return _owned(views, n, with_slots)
 
 
@@ -386,14 +384,13 @@ def _pack(st: _Staging, columns, with_slots: bool):
 
 
 def _launch(st: _Staging, views, with_slots: bool, request: int,
-            gpus_per_node: int, weights: ScoreWeights, backend: str) -> bool:
+            gpus_per_node: int, weights: ScoreWeights, backend: str) -> None:
     """Enqueue the copy up, the kernel and the copy down: in one call
-    through the layout's plan on a card with the ``"kernel"`` backend
-    (returns True), else through ``ops`` (checked at every pass) and
-    torch's copies (returns False)."""
+    through the layout's plan on a card with the ``"kernel"`` backend,
+    else through ``ops`` (checked at every pass) and torch's copies."""
     if st.on_card and backend == "kernel":
         st.launch(views, with_slots, request, gpus_per_node, weights)
-        return True
+        return
     from ..kernels import ops  # deferred: keep the np path torch-free
     _, dev_cols, dev_outs, _, up, down = views
     kw = dict(request=request, gpus_per_node=gpus_per_node,
@@ -406,7 +403,6 @@ def _launch(st: _Staging, views, with_slots: bool, request: int,
         ops.node_scores(*dev_cols, out=dev_outs[0], **kw)
     if st.on_card:
         down[0].copy_(down[1], non_blocking=True)
-    return False
 
 
 def _wait(st: _Staging) -> None:

@@ -13,11 +13,7 @@
 // (B, H, n, n), both float32; o (B, T, H, n) and S_T (B, H, n, n) are
 // float32.  Any T >= 1 and any n <= 64.
 //
-// wkv6_launch runs the chunked form in two kernels; wkv6_step_launch is
-// the serial step kernel they replaced, kept only as the yardstick they are
-// timed against.
-//
-// --- wkv6_launch: chunked --------------------------------------------------
+// --- wkv6_launch: the chunked form, in two kernels ------------------------
 //
 // Algorithm.  Over a chunk of C = 16 steps starting at t0, with the state
 // S_in entering it and D(x, y) = prod_{x <= j < y} w_j (per channel i; the
@@ -88,30 +84,15 @@
 // chunk steps (issuing the next loads, two barriers and a chain of
 // dependent mma.sync each step) and the local kernel's per-block chain
 // (stage, products, A, outputs).  chip_smoke.py's wkv-time phase times the
-// pair against the step kernel, splits its device time between the two
-// kernels, and times one head alone against forty.
-//
-// --- wkv6_step_launch: the serial step kernel ---------------------------
-//
-// One block per (b, h), n threads; thread m owns column m of S and keeps
-// its n float32 values in registers for the whole loop over T.  At each
-// step r_t, k_t, w_t and u*k_t go through shared memory (double-buffered,
-// so one __syncthreads a step) and the next step's inputs are loaded while
-// this step computes.  Latency-bound: T serial steps on B*H blocks.
+// pair against its bound, splits its device time between the two kernels,
+// and times one head alone against forty.
 
 #include <cstdint>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kMaxN = 64;
-
-__device__ __forceinline__ float load_f32(const void* __restrict__ p,
-                                          int64_t i, bool bf16) {
-  return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
-              : static_cast<const float*>(p)[i];
-}
 
 // ---------------------------------------------------------------------------
 // Chunked kernels.
@@ -687,118 +668,8 @@ int launch_chunk(int64_t BH, cudaStream_t stream, const void* r,
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---------------------------------------------------------------------------
-// Serial step kernel (the yardstick).  The block has exactly n threads.
-
-template <int N>
-__global__ void __launch_bounds__(N)
-wkv6_step_kernel(const void* __restrict__ r, const void* __restrict__ k,
-                 const void* __restrict__ v, const void* __restrict__ w,
-                 const float* __restrict__ u, const float* __restrict__ s0,
-                 float* __restrict__ o, float* __restrict__ sT, int64_t T,
-                 int H, int n, int bf16_mask) {
-  __shared__ __align__(16) float s_r[2][N];
-  __shared__ __align__(16) float s_k[2][N];
-  __shared__ __align__(16) float s_w[2][N];
-  __shared__ __align__(16) float s_uk[2][N];
-
-  const int64_t bh = blockIdx.x;
-  const int64_t b = bh / H;
-  const int h = static_cast<int>(bh % H);
-  const int m = threadIdx.x;
-  const bool r16 = bf16_mask & 1, k16 = bf16_mask & 2, v16 = bf16_mask & 4,
-             w16 = bf16_mask & 8;
-
-  const float u_m = u[h * n + m];
-  const float* s0_bh = s0 + bh * n * n;
-  float S[N];
-#pragma unroll
-  for (int i = 0; i < N; ++i) S[i] = i < n ? s0_bh[i * n + m] : 0.0f;
-
-  const int64_t stride_t = static_cast<int64_t>(H) * n;
-  int64_t idx = (b * T * H + h) * n + m;  // element (b, t = 0, h, m)
-  float cr = 0.0f, ck = 0.0f, cv = 0.0f, cw = 0.0f;
-  if (T > 0) {
-    cr = load_f32(r, idx, r16);
-    ck = load_f32(k, idx, k16);
-    cv = load_f32(v, idx, v16);
-    cw = load_f32(w, idx, w16);
-  }
-  for (int64_t t = 0; t < T; ++t) {
-    const int buf = static_cast<int>(t & 1);
-    s_r[buf][m] = cr;
-    s_k[buf][m] = ck;
-    s_w[buf][m] = cw;
-    s_uk[buf][m] = u_m * ck;
-    const float v_m = cv;
-    const int64_t here = idx;
-    if (t + 1 < T) {  // prefetch step t + 1 while step t computes
-      idx += stride_t;
-      cr = load_f32(r, idx, r16);
-      ck = load_f32(k, idx, k16);
-      cv = load_f32(v, idx, v16);
-      cw = load_f32(w, idx, w16);
-    }
-    __syncthreads();
-    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    float y[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      if (i < n) {
-        const float ri = s_r[buf][i];
-        acc[i & 3] = fmaf(ri, S[i], acc[i & 3]);
-        y[i & 3] = fmaf(ri, s_uk[buf][i], y[i & 3]);
-        S[i] = fmaf(s_w[buf][i], S[i], s_k[buf][i] * v_m);
-      }
-    }
-    o[here] = ((acc[0] + acc[1]) + (acc[2] + acc[3])) +
-              v_m * ((y[0] + y[1]) + (y[2] + y[3]));
-  }
-
-  float* sT_bh = sT + bh * n * n;
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-    if (i < n) sT_bh[i * n + m] = S[i];
-}
-
-template <int N>
-int launch_step(int64_t BH, cudaStream_t stream, const void* r,
-                const void* k, const void* v, const void* w, const float* u,
-                const float* s0, float* o, float* sT, float* /*scratch*/,
-                int64_t T, int H, int n, int bf16_mask) {
-  wkv6_step_kernel<N><<<static_cast<unsigned>(BH), n, 0, stream>>>(
-      r, k, v, w, u, s0, o, sT, T, H, n, bf16_mask);
-  return static_cast<int>(cudaGetLastError());
-}
-
-using Launcher = int (*)(int64_t, cudaStream_t, const void*, const void*,
-                         const void*, const void*, const float*,
-                         const float*, float*, float*, float*, int64_t, int,
-                         int, int);
-
-// Checks the arguments and picks the instantiation for n.
-int dispatch(const Launcher (&by_n)[4], const void* r, const void* k,
-             const void* v, const void* w, const void* u, const void* s0,
-             void* o, void* sT, void* scratch, int64_t B, int64_t T,
-             int32_t H, int32_t n, int32_t bf16_mask, void* stream) {
-  const int64_t BH = B * H;
-  if (B <= 0 || H <= 0 || T < 1 || n < 1 || n > kMaxN || BH > 0x7fffffffLL)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int which = n <= 8 ? 0 : n <= 16 ? 1 : n <= 32 ? 2 : 3;
-  return by_n[which](BH, static_cast<cudaStream_t>(stream), r, k, v, w,
-                     static_cast<const float*>(u),
-                     static_cast<const float*>(s0), static_cast<float*>(o),
-                     static_cast<float*>(sT), static_cast<float*>(scratch),
-                     T, H, n, bf16_mask);
-}
-
 // Head size n rounded up to the chunked kernels' tile (16, 32 or 64).
 int padded_head(int n) { return n <= 16 ? 16 : n <= 32 ? 32 : 64; }
-
-constexpr Launcher kChunkLaunchers[4] = {launch_chunk<16>, launch_chunk<16>,
-                                         launch_chunk<32>, launch_chunk<64>};
-constexpr Launcher kStepLaunchers[4] = {launch_step<8>, launch_step<16>,
-                                        launch_step<32>, launch_step<64>};
 
 }  // namespace
 
@@ -813,7 +684,7 @@ extern "C" int64_t wkv6_scratch_floats(int64_t B, int64_t T, int32_t H,
 }
 
 // bf16_mask: bit 0 r, bit 1 k, bit 2 v, bit 3 w is bfloat16 (else float32).
-// Each returns the CUDA error of the launch (0 on success); it launches
+// It returns the CUDA error of the launch (0 on success); it launches
 // nothing and returns cudaErrorInvalidValue on arguments the kernel does
 // not take.  scratch: wkv6_scratch_floats(B, T, H, n) floats, 16-byte
 // aligned.
@@ -822,17 +693,16 @@ extern "C" int wkv6_launch(const void* r, const void* k, const void* v,
                            void* o, void* sT, void* scratch, int64_t B,
                            int64_t T, int32_t H, int32_t n, int32_t bf16_mask,
                            void* stream) {
-  if (reinterpret_cast<uintptr_t>(scratch) % 16 != 0)
+  const int64_t BH = B * H;
+  if (B <= 0 || H <= 0 || T < 1 || n < 1 || n > kMaxN || BH > 0x7fffffffLL ||
+      reinterpret_cast<uintptr_t>(scratch) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch(kChunkLaunchers, r, k, v, w, u, s0, o, sT, scratch, B, T, H,
-                  n, bf16_mask, stream);
-}
-
-extern "C" int wkv6_step_launch(const void* r, const void* k, const void* v,
-                                const void* w, const void* u, const void* s0,
-                                void* o, void* sT, int64_t B, int64_t T,
-                                int32_t H, int32_t n, int32_t bf16_mask,
-                                void* stream) {
-  return dispatch(kStepLaunchers, r, k, v, w, u, s0, o, sT, nullptr, B, T, H,
-                  n, bf16_mask, stream);
+  const int N = padded_head(n);
+  const auto launch = N == 16   ? launch_chunk<16>
+                      : N == 32 ? launch_chunk<32>
+                                : launch_chunk<64>;
+  return launch(BH, static_cast<cudaStream_t>(stream), r, k, v, w,
+                static_cast<const float*>(u), static_cast<const float*>(s0),
+                static_cast<float*>(o), static_cast<float*>(sT),
+                static_cast<float*>(scratch), T, H, n, bf16_mask);
 }

@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from ..device import NEG_INF
-from ..launch.op_analysis import trip_range
+from ..loops import trip_range
 
 
 def node_scores_ref(free: torch.Tensor, used: torch.Tensor,
@@ -83,8 +83,7 @@ def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``S <- w_t[:, None]·S + k_tᵀv_t``.  Runs on the inputs' device; the
     CUDA kernel in :mod:`repro_torch.kernels.wkv6` is held against it.
     Under the dry-run's op counter on meta tensors the loop runs one
-    step, counted T times (:func:`~repro_torch.launch.op_analysis.
-    trip_range`).
+    step, counted T times (:func:`~repro_torch.loops.trip_range`).
     """
     r, k, v, w = (t.to(torch.float32) for t in (r, k, v, w))
     u = u.to(torch.float32)[None, :, :, None]

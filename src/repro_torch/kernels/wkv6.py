@@ -4,18 +4,15 @@ The chunked kernels (``csrc/wkv6.cu``, ``wkv6_launch``: a pass over all
 chunks in parallel, then a serial scan over chunk boundaries) replace the
 Pallas TPU kernel ``_wkv_kernel`` of the reference package's
 ``kernels/wkv6.py``; :func:`wkv6` runs them, and every caller of the port
-goes through that wrapper, which allocates their scratch.  The serial step
-kernel they replaced (``wkv6_step_launch``, same source) stays only as the
-yardstick they are timed against, behind :func:`wkv6_step`, which no
-backend, model or engine calls.  The library is built at first use with
-``nvcc`` for ``sm_90a`` (:mod:`._build`) and loaded with ``ctypes``.
+goes through that wrapper, which allocates their scratch.  The library is
+built at first use with ``nvcc`` for ``sm_90a`` (:mod:`._build`) and
+loaded with ``ctypes``.
 
-Each wrapper takes the plain torch version (:func:`.ref.wkv6_ref`) only
+The wrapper takes the plain torch version (:func:`.ref.wkv6_ref`) only
 for tensors that lie on the CPU.  For CUDA tensors it checks device,
 dtype, shape and contiguity, launches its kernel on the current stream,
 and raises if anything is off or the launch is refused: there is no
-fallback.  ``wkv6.launches`` and ``wkv6_step.launches`` count kernel
-launches and nothing else.
+fallback.  ``wkv6.launches`` counts kernel launches and nothing else.
 """
 
 from __future__ import annotations
@@ -53,8 +50,7 @@ def build() -> ctypes.CDLL:
     lib, build_log = _build.load("wkv6.cu", NVCC_FLAGS)
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
     lib.wkv6_launch.argtypes = [ptr] * 9 + [i64, i64, i32, i32, i32, ptr]
-    lib.wkv6_step_launch.argtypes = [ptr] * 8 + [i64, i64, i32, i32, i32, ptr]
-    lib.wkv6_launch.restype = lib.wkv6_step_launch.restype = ctypes.c_int
+    lib.wkv6_launch.restype = ctypes.c_int
     lib.wkv6_scratch_floats.argtypes = [i64, i64, i32, i32]
     lib.wkv6_scratch_floats.restype = i64
     build_seconds = time.perf_counter() - t0
@@ -92,29 +88,6 @@ def _check(r, k, v, w, u, s0) -> Tuple[int, int, int, int]:
     return B, T, H, n
 
 
-def _launch(name: str, r, k, v, w, u, s0
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Check the inputs and launch ``name`` from the library; raises on
-    anything the kernel does not take and on a refused launch."""
-    B, T, H, n = _check(r, k, v, w, u, s0)
-    o = torch.empty((B, T, H, n), dtype=torch.float32, device=r.device)
-    sT = torch.empty((B, H, n, n), dtype=torch.float32, device=r.device)
-    bf16_mask = sum(1 << i for i, t in enumerate((r, k, v, w))
-                    if t.dtype == torch.bfloat16)
-    lib = build()
-    ptrs = [t.data_ptr() for t in (r, k, v, w, u, s0, o, sT)]
-    if name == "wkv6_launch":   # the chunked kernels' per-chunk scratch
-        scratch = torch.empty(lib.wkv6_scratch_floats(B, T, H, n),
-                              dtype=torch.float32, device=r.device)
-        ptrs.append(scratch.data_ptr())
-    with torch.cuda.device(r.device):
-        stream = torch.cuda.current_stream(r.device).cuda_stream
-        err = getattr(lib, name)(*ptrs, B, T, H, n, bf16_mask, stream)
-    if err != 0:
-        raise RuntimeError(f"{name} failed: CUDA error {err}")
-    return o, sT
-
-
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor
          ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -122,25 +95,26 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     r, k, v, w: (B, T, H, n), each f32 or bf16, contiguous; u: (H, n)
     f32; s0: (B, H, n, n) f32; n <= 64, T >= 1.  Returns (o (B, T, H, n)
-    f32, S_T (B, H, n, n) f32)."""
+    f32, S_T (B, H, n, n) f32).  Raises on anything the kernels do not
+    take and on a refused launch."""
     if r.device.type == "cpu":
         return wkv6_ref(r, k, v, w, u, s0)
-    out = _launch("wkv6_launch", r, k, v, w, u, s0)
+    B, T, H, n = _check(r, k, v, w, u, s0)
+    o = torch.empty((B, T, H, n), dtype=torch.float32, device=r.device)
+    sT = torch.empty((B, H, n, n), dtype=torch.float32, device=r.device)
+    bf16_mask = sum(1 << i for i, t in enumerate((r, k, v, w))
+                    if t.dtype == torch.bfloat16)
+    lib = build()
+    scratch = torch.empty(lib.wkv6_scratch_floats(B, T, H, n),
+                          dtype=torch.float32, device=r.device)
+    ptrs = [t.data_ptr() for t in (r, k, v, w, u, s0, o, sT, scratch)]
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream(r.device).cuda_stream
+        err = lib.wkv6_launch(*ptrs, B, T, H, n, bf16_mask, stream)
+    if err != 0:
+        raise RuntimeError(f"wkv6_launch failed: CUDA error {err}")
     wkv6.launches += 1
-    return out
-
-
-def wkv6_step(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """:func:`wkv6` on the serial step kernel that the chunked kernels
-    replaced: the yardstick they are timed against, nothing else."""
-    if r.device.type == "cpu":
-        return wkv6_ref(r, k, v, w, u, s0)
-    out = _launch("wkv6_step_launch", r, k, v, w, u, s0)
-    wkv6_step.launches += 1
-    return out
+    return o, sT
 
 
 wkv6.launches = 0
-wkv6_step.launches = 0

@@ -18,7 +18,10 @@ memory, no kernel).  Function by function:
   ``matmul_flops_per_device``;
 * ``known_trip_count`` -> :func:`counted_loop`: ops dispatched inside it
   count ×n.  The port's Python loops on the dry-run's path run one
-  representative iteration under it (:func:`trip_range`).
+  representative iteration under it (:func:`trip_range`).  Both live in
+  :mod:`repro_torch.loops`, which needs only torch, so that the kernels
+  and models that loop do not load this module; they are imported back
+  here.
 
 The XLA-text parsing (``_parse``, ``_split_operands``, ``_fusion_bytes``,
 ``_sliced_read_bytes``, the ``promoted`` all-reduce rule) has no torch
@@ -71,12 +74,11 @@ Counting rules, all on **local** tensors:
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import os
 import sys
 import weakref
-from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch._subclasses.fake_tensor import FakeTensor
@@ -84,6 +86,9 @@ from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import flop_registry
+
+# The loop hook, imported back so that this module's users reach it here.
+from ..loops import _ACTIVE, counted_loop, counting, trip_range
 
 __all__ = ["COLLECTIVE_KINDS", "Cost", "OpCounter", "analyse_ops",
            "counted_loop", "counting", "top_contributors", "trip_range"]
@@ -204,14 +209,6 @@ def _site() -> str:
                     f"{f.f_lineno}")
         f = f.f_back
     return "?"
-
-
-def _sequence_nr() -> int:
-    """The sequence number the next autograd node will get."""
-    return torch._C._autograd._get_sequence_nr()
-
-
-_ACTIVE: List["OpCounter"] = []
 
 
 class OpCounter(TorchDispatchMode):
@@ -360,66 +357,6 @@ class OpCounter(TorchDispatchMode):
                 "collective_bytes_per_device": self.cost.collective_bytes,
                 "collectives": dict(self.cost.coll),
                 "matmul_flops_per_device": self.cost.matmul_flops}
-
-
-def active() -> Optional[OpCounter]:
-    return _ACTIVE[-1] if _ACTIVE else None
-
-
-def counting(like: torch.Tensor) -> bool:
-    """True when an :class:`OpCounter` is active and ``like`` is on the
-    meta device, so that a loop may run one iteration for all."""
-    return bool(_ACTIVE) and like.device.type == "meta"
-
-
-@contextlib.contextmanager
-def counted_loop(n: int) -> Iterator[None]:
-    """Ops dispatched inside count ×``n`` (nested loops multiply), in the
-    forward pass and in the backward of the autograd nodes made here.
-    Without an active counter it does nothing."""
-    counter = active()
-    if counter is None:
-        yield
-        return
-    prev = counter._mult
-    counter._mult = prev * n
-    start = _sequence_nr()
-    try:
-        yield
-    finally:
-        end = _sequence_nr()
-        m = counter._mult
-        counter._mult = prev
-        nodes = counter._node_mult
-        for s in range(start, end):
-            if nodes.get(s, 1.0) < m:
-                nodes[s] = m
-
-
-class TripRange:
-    """``range(n)``, or, while :func:`counting` ``like``, the single index
-    0 with the loop body under ``counted_loop(n)``; :meth:`full` gives
-    the list the plain loop would have built from the one the loop
-    built, so that a stack or concatenation after it dispatches the op
-    the plain loop does, at full shape."""
-
-    def __init__(self, n: int, like: torch.Tensor) -> None:
-        self.n = n
-        self.counted = n > 1 and counting(like)
-
-    def __iter__(self) -> Iterator[int]:
-        if not self.counted:
-            yield from range(self.n)
-            return
-        with counted_loop(self.n):
-            yield 0
-
-    def full(self, items: List) -> List:
-        return items * self.n if self.counted else items
-
-
-def trip_range(n: int, like: torch.Tensor) -> TripRange:
-    return TripRange(n, like)
 
 
 def analyse_ops(fn: Callable, *args, **kwargs) -> Dict[str, object]:

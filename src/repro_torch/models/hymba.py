@@ -28,7 +28,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..launch.op_analysis import trip_range
+from ..loops import trip_range
 from ..sharding.context import constrain, local_einsum
 from .layers import Params, dense_init, init_attn, spec_attn
 

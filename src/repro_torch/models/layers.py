@@ -28,7 +28,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-from ..launch.op_analysis import trip_range
+from ..loops import trip_range
 from ..sharding.context import (axis_size, constrain, contiguous_grad,
                                 flattenable, local_einsum, local_range,
                                 splittable)

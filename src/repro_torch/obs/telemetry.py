@@ -75,10 +75,7 @@ __all__ = ["Telemetry", "CycleSpan", "JobRecord"]
 _SPAN_ARGS = {"schedule": "uid", "event": "kind"}
 
 #: The score seam's counters: name, help, labels; tallied per pass in
-#: plain numbers and published to the registry when it is collected.  A
-#: pass launches ``direct`` (one call through its staging layout's plan,
-#: on a card with the kernel backend) or ``checked`` (through the kernel
-#: wrappers, which check their arguments at every call).
+#: plain numbers and published to the registry when it is collected.
 _SEAM_COUNTERS = (
     ("kant_seam_calls_total", "score seam passes", {}),
     ("kant_seam_rows_total", "node rows given to the score seam", {}),
@@ -86,10 +83,6 @@ _SEAM_COUNTERS = (
      {"dir": "up"}),
     ("kant_seam_bytes_total", "packed bytes of the score seam, by direction",
      {"dir": "down"}),
-    ("kant_seam_launches_total", "score seam passes, by launch path",
-     {"path": "direct"}),
-    ("kant_seam_launches_total", "score seam passes, by launch path",
-     {"path": "checked"}),
 )
 
 #: The pods ``ClusterState.allocate`` committed, by path: tallied in
@@ -234,9 +227,8 @@ class _ScopedTelemetry:
     def loop_close(self) -> None:
         self._tel.loop_close()
 
-    def seam_done(self, rows: int, up_bytes: int, down_bytes: int,
-                  direct: bool) -> None:
-        self._tel.seam_done(rows, up_bytes, down_bytes, direct)
+    def seam_done(self, rows: int, up_bytes: int, down_bytes: int) -> None:
+        self._tel.seam_done(rows, up_bytes, down_bytes)
 
     def pass_done(self, pool: str, placed: bool) -> None:
         self._tel.pass_done(pool, placed, scope=self._scope)
@@ -501,16 +493,13 @@ class Telemetry:
             self._close()
 
     # -- the score seam (core/scoring.py::_staged_pass) -----------------
-    def seam_done(self, rows: int, up_bytes: int, down_bytes: int,
-                  direct: bool) -> None:
-        """Tally a finished pass: its rows, the bytes each way and its
-        launch path (``direct`` through the layout's plan)."""
+    def seam_done(self, rows: int, up_bytes: int, down_bytes: int) -> None:
+        """Tally a finished pass: its rows and the bytes each way."""
         tally = self._seam
         tally[0] += 1
         tally[1] += rows
         tally[2] += up_bytes
         tally[3] += down_bytes
-        tally[4 if direct else 5] += 1
 
     def _collect_seam(self, reg) -> None:
         for (name, help, labels), total, done in zip(

@@ -92,6 +92,27 @@ def test_every_module_imports_with_jax_blocked():
     assert set(DRYRUN) <= set(names.split())
 
 
+#: The scheduler's path down to the kernels, and what it must not load:
+#: the dry-run's cost model and what that module brings (DTensor, the
+#: flop counter, sympy).
+SCHEDULER_PATH = ("repro_torch.core", "repro_torch.core.scoring",
+                  "repro_torch.kernels.node_score", "repro_torch.kernels.ops",
+                  "repro_torch.kernels.wkv6", "repro_torch.kernels.ref")
+COST_MODEL = ("repro_torch.launch.op_analysis", "torch.distributed.tensor",
+              "torch.utils.flop_counter", "sympy")
+
+
+def test_scheduler_path_imports_no_cost_model():
+    code = (f"import importlib, sys\n"
+            f"for name in {SCHEDULER_PATH!r}:\n"
+            f"    importlib.import_module(name)\n"
+            f"print(sorted(m for m in {COST_MODEL!r} if m in sys.modules))")
+    out = subprocess.run([sys.executable, "-c", code], env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split("\n")[0] == "[]"
+
+
 def _imports(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):

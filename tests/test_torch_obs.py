@@ -61,12 +61,11 @@ PORT = types.SimpleNamespace(core=TC, obs=TO, report=TO_report, serve=TS,
 WALL_FAMILIES = ("kant_cycle_seconds",)
 PROCESS_FAMILIES = ("combo_cache_",)
 #: Families only the port registers: pods bound, the score seam's
-#: passes, rows, bytes and launch paths, the pods committed by each path,
-#: and RSCH's placement passes.
+#: passes, rows and bytes, the pods committed by each path, and RSCH's
+#: placement passes.
 PORT_FAMILIES = ("kant_pods_bound_total", "kant_seam_calls_total",
                  "kant_seam_rows_total", "kant_seam_bytes_total",
-                 "kant_seam_launches_total", "kant_commit_pods_total",
-                 "kant_placement_passes_total")
+                 "kant_commit_pods_total", "kant_placement_passes_total")
 DROPPED = WALL_FAMILIES + PROCESS_FAMILIES + PORT_FAMILIES
 #: Spans only the port records on the scheduler lane, and their args.
 PORT_SPANS = {"admit", "schedule", "pass-zone", "pass-general", "pass-all",
@@ -1006,20 +1005,6 @@ def test_forced_collection_is_one_gc_span_under_the_open_span():
     assert node["parent"]["name"] == "snapshot"
     assert node["args"]["generation"] == 2
     assert tel.span_count["gc"] == 1
-
-
-def test_cpu_seam_passes_are_counted_checked():
-    """Every seam pass of an attached run on the CPU goes through the
-    kernel wrappers: ``kant_seam_launches_total{path="checked"}`` equals
-    ``kant_seam_calls_total`` and no pass is ``direct``."""
-    tel = TO.Telemetry(audit=False)
-    _run_sim(PORT, _trace_jobs(PORT), telemetry=tel)
-    tel.registry.collect()
-    calls = tel.registry.counter("kant_seam_calls_total").value()
-    launches = tel.registry.counter("kant_seam_launches_total")
-    assert calls > 0
-    assert launches.value(path="checked") == calls
-    assert launches.value(path="direct") == 0
 
 
 def test_detach_and_the_run_end_remove_the_gc_hook_and_the_seam_probe(

@@ -12,6 +12,7 @@ from torch.distributed.device_mesh import init_device_mesh
 from torch.distributed.tensor import Replicate, Shard, distribute_tensor
 from torch.utils.flop_counter import FlopCounterMode
 
+from repro_torch import loops
 from repro_torch.kernels.ref import wkv6_ref
 from repro_torch.launch import op_analysis as oa
 from repro_torch.launch.dryrun import fake_group
@@ -227,7 +228,7 @@ LOOP_SITES = {
 
 def _count(fn, args, counted, monkeypatch, grad=False):
     if not counted:
-        monkeypatch.setattr(oa, "counting", lambda like: False)
+        monkeypatch.setattr(loops, "counting", lambda like: False)
     if grad:
         args = [a.requires_grad_(True) for a in args]
     with OpCounter() as c:

@@ -302,26 +302,38 @@ def test_staging_is_memoised_by_the_device_as_given(monkeypatch):
 
 
 class _Tally:
-    """A probe that opens no span and keeps each pass's launch path."""
+    """A probe that opens no span and keeps what each pass tallies."""
 
     def __init__(self):
-        self.direct = []
+        self.passes = []
 
     def span(self, name):
         return contextlib.nullcontext()
 
-    def seam_done(self, rows, up_bytes, down_bytes, direct):
-        self.direct.append(direct)
+    def seam_done(self, rows, up_bytes, down_bytes):
+        self.passes.append((rows, up_bytes, down_bytes))
 
 
-def test_cpu_passes_are_tallied_checked():
+def test_cpu_passes_are_tallied_with_their_rows_and_packed_bytes():
+    """Each pass tallies its node rows and the bytes of its packed input
+    and output segments, padding included, as ``segment_offsets`` lays
+    them out."""
     tally = _Tally()
-    table = _table(40, 8, seed=7)
+    want = []
     with scoring.probed(tally):
-        for backend in BACKENDS:
-            scoring.compute_node_scores_and_slots(
-                *table, 2, 8, WEIGHTS["e_spread"], backend=backend,
-                device="cpu")
-            scoring.compute_node_scores(*table, 2, 8, WEIGHTS["e_spread"],
-                                        backend=backend, device="cpu")
-    assert tally.direct == [False] * 4
+        for n in (40, 17):
+            table = _table(n, 8, seed=7)
+            n_pad = -(-n // scoring.NODE_PAD) * scoring.NODE_PAD
+            _, up = scoring.segment_offsets(n_pad, scoring._IN_DTYPES)
+            for backend in BACKENDS:
+                scoring.compute_node_scores_and_slots(
+                    *table, 2, 8, WEIGHTS["e_spread"], backend=backend,
+                    device="cpu")
+                scoring.compute_node_scores(*table, 2, 8,
+                                            WEIGHTS["e_spread"],
+                                            backend=backend, device="cpu")
+                for out_dtypes in (scoring._OUT_DTYPES,
+                                   scoring._OUT_DTYPES[:1]):
+                    _, down = scoring.segment_offsets(n_pad, out_dtypes)
+                    want.append((n, up, down))
+    assert tally.passes == want

@@ -143,9 +143,8 @@ def test_mirror_rejects_chunk_not_a_power_of_two(chunk):
 
 def test_cpu_wrappers_run_the_plain_version_and_count_nothing():
     arrays = [torch.from_numpy(a) for a in _inputs(1, 9, 2, 8, seed=1)]
-    before = (wkv6_mod.wkv6.launches, wkv6_mod.wkv6_step.launches)
+    before = wkv6_mod.wkv6.launches
     want = wkv6_ref(*arrays)
-    for fn in (wkv6_mod.wkv6, wkv6_mod.wkv6_step):
-        for g, x in zip(fn(*arrays), want):
-            assert torch.equal(g, x)
-    assert (wkv6_mod.wkv6.launches, wkv6_mod.wkv6_step.launches) == before
+    for g, x in zip(wkv6_mod.wkv6(*arrays), want):
+        assert torch.equal(g, x)
+    assert wkv6_mod.wkv6.launches == before
