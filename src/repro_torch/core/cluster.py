@@ -46,6 +46,13 @@ from .topology import ClusterTopology
 #: ``scripts/commit_bench.py``; the numbers are in PERF.md §6.
 BATCH_MIN_PODS = 3
 
+#: Pod count up to which a commit brings the derived columns of its rows
+#: up to date by the counts it adds (``StateColumns.add_busy``, pod by
+#: pod) rather than re-deriving the rows from the bitmaps with
+#: whole-array operations, whose fixed cost the loop undercuts up to
+#: here.  Measured like ``BATCH_MIN_PODS``; the numbers are in PERF.md §6.
+DELTA_MAX_PODS = 8
+
 
 def commit_index(placement: Placement, keep: bool = True
                  ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
@@ -56,6 +63,21 @@ def commit_index(placement: Placement, keep: bool = True
     if len(placement.pods) < BATCH_MIN_PODS:
         return None
     return placement.index_form(keep)
+
+
+def delta_commit(placement: Placement) -> bool:
+    """True where a commit of the placement updates the derived columns
+    by count deltas: ``DELTA_MAX_PODS`` pods or fewer."""
+    return len(placement.pods) <= DELTA_MAX_PODS
+
+
+def _disjoint(pods: List[PodPlacement], rows: int) -> bool:
+    """True when no two of ``pods``, on ``rows`` distinct nodes, name
+    one device (a pod names none twice)."""
+    if rows == len(pods):
+        return True
+    devices = [(p.node, g) for p in pods for g in p.gpu_indices]
+    return len(set(devices)) == len(devices)
 
 
 def write_busy(busy: np.ndarray, placement: Placement,
@@ -99,6 +121,11 @@ class ClusterState:
         # Pods committed by ``allocate``: [as one gang, pod by pod]
         # (published as ``kant_commit_pods_total`` by repro_torch.obs).
         self.commit_pods = [0, 0]
+        # The commit path's work on this state and the snapshots taken of
+        # it: [rows updated by count deltas, rows re-derived, group-sum
+        # patches] (``kant_commit_rows_total{path}``,
+        # ``kant_group_sum_patches_total``).
+        self.commit_work = [0, 0, 0]
 
     # ------------------------------------------------------------------
     # Constructors
@@ -253,7 +280,19 @@ class ClusterState:
         else:
             self.commit_pods[0] += len(nodes)
         self.allocations[job.uid] = placement
-        self._touch(nodes)
+        self.dirty_nodes.update(nodes.tolist())
+        if self._derived_ready:
+            # The checks above held for every pod: its devices were
+            # healthy and free on a healthy node, so the counts it adds
+            # are known, unless two pods name one device.
+            pods = placement.pods
+            rows = len({p.node for p in pods})
+            if delta_commit(placement) and _disjoint(pods, rows):
+                self.cols.add_busy(pods)
+                self.commit_work[0] += rows
+            else:
+                self.cols.refresh_derived(nodes)
+                self.commit_work[1] += rows
 
     def _gang_fits(self, job: Job, nodes: np.ndarray,
                    slots: np.ndarray) -> bool:
@@ -357,5 +396,5 @@ class ClusterState:
             raise AssertionError("derived columns drifted from bitmaps")
 
 
-__all__ = ["BATCH_MIN_PODS", "ClusterState", "StateColumns", "commit_index",
-           "write_busy"]
+__all__ = ["BATCH_MIN_PODS", "DELTA_MAX_PODS", "ClusterState", "StateColumns",
+           "commit_index", "delta_commit", "write_busy"]

@@ -15,10 +15,11 @@ Layout contract:
   column to ``bool``;
 * derived columns are a pure function of the bitmap columns —
   :meth:`refresh_derived` recomputes them for all rows or a dirty-row
-  subset, and the sanctioned mutators of ``ClusterState`` /
-  ``Snapshot._refresh_rows`` are the only writers, so dirty-row
-  tracking stays sound (property-tested against a naive per-field
-  reference model in ``tests/test_properties.py``);
+  subset, :meth:`add_busy` applies a small commit's known counts, and
+  the sanctioned mutators of ``ClusterState`` / ``Snapshot`` are the
+  only writers, so dirty-row tracking stays sound (property-tested
+  against a naive per-field reference model in
+  ``tests/test_properties.py`` and ``tests/test_torch_commit_delta.py``);
 * snapshots are column copies + dirty-row copies of this block, never
   per-field rebuilds (see :mod:`repro_torch.core.snapshot`).
 """
@@ -26,9 +27,11 @@ Layout contract:
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Iterable, Optional
 
 import numpy as np
+
+from .job import PodPlacement
 
 
 @dataclasses.dataclass
@@ -42,7 +45,7 @@ class StateColumns:
     node_healthy: np.ndarray    # (n,) bool — node schedulable at all
     inference_zone: np.ndarray  # (n,) bool — E-Spread zone (§3.3.4)
     node_draining: np.ndarray   # (n,) bool — maintenance drain window
-    # -- maintained derived columns (refresh_derived is the only writer)
+    # -- maintained derived columns (refresh_derived and add_busy write)
     free_gpus: np.ndarray       # (n,) int32: healthy & ~busy, 0 if node down
     used_gpus: np.ndarray       # (n,) int32: busy & healthy
     busy_count: np.ndarray      # (n,) int32: busy (regardless of health)
@@ -106,6 +109,24 @@ class StateColumns:
         self.free_gpus[view] = np.where(nh, free, np.int32(0))
         self.fragmented[view] = ((used > 0) & (used < healthy_count)
                                  & nh & (healthy_count > 0))
+
+    def add_busy(self, pods: Iterable[PodPlacement]) -> None:
+        """Count the pods' devices busy in the derived columns, their
+        bits already set: what :meth:`refresh_derived` computes for the
+        rows, without reading the bitmaps.  Holds only where each pod's
+        devices were healthy and free on a healthy node and no device is
+        named twice: a row then gains ``k`` busy and used devices and
+        loses ``k`` free ones a pod of ``k``, and is fragmented while
+        some healthy device stays free.  Pods on one node accumulate."""
+        busy, used, free = self.busy_count, self.used_gpus, self.free_gpus
+        frag, cap = self.fragmented, self.healthy_count
+        for pod in pods:
+            n, k = pod.node, len(pod.gpu_indices)
+            busy[n] += k
+            u = used[n] + k
+            used[n] = u
+            free[n] -= k
+            frag[n] = 0 < u < cap[n]
 
     # ------------------------------------------------------------------
     # Snapshot support: column copies + dirty-row copies

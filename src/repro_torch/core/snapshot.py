@@ -20,18 +20,20 @@ optimizations:
   healthy capacity, observability stats);
 * ``tracked`` — **row-patchable** per-NodeNetGroup aggregates
   (:class:`TrackedGroupSum`).  Unlike ``derived``, these survive
-  placement deltas: ``_refresh_rows`` patches them in O(dirty rows)
-  instead of dropping them, which is what makes RSCH preselection
-  O(groups) instead of O(nodes) at 100k+ nodes.
+  placement deltas: a delta queues its rows on every sum, and
+  :meth:`Snapshot.tracked_sum` patches a sum over the rows queued since
+  its last read, in O(dirty rows), instead of dropping it, which is what
+  makes RSCH preselection O(groups) instead of O(nodes) at 100k+ nodes.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Hashable, Iterable, Optional
+from typing import (Callable, Collection, Dict, Hashable, Iterable, List,
+                    Optional)
 
 import numpy as np
 
-from .cluster import ClusterState, write_busy
+from .cluster import ClusterState, delta_commit, write_busy
 from .columns import StateColumns
 from .job import Placement
 
@@ -44,7 +46,9 @@ class TrackedGroupSum:
     maintained exactly: contributions are small non-negative integers
     (bounded by gpus_per_node × nodes_per_leaf), so the ``np.add.at``
     patch arithmetic is exact in int64 and a patched total always equals
-    a from-scratch ``bincount`` (asserted in tests/test_scale.py).
+    a from-scratch ``bincount`` (asserted in tests/test_scale.py and
+    tests/test_torch_commit_delta.py).  ``pending`` holds the rows
+    changed since the last patch, repeats allowed.
     """
 
     def __init__(self, leaf_id: np.ndarray, n_groups: int,
@@ -56,8 +60,14 @@ class TrackedGroupSum:
         self.contrib = np.asarray(contrib_fn(snap, None), dtype=np.int64)
         self.totals = np.zeros(n_groups, dtype=np.int64)
         np.add.at(self.totals, leaf_id, self.contrib)
+        self.pending: List[int] = []
 
-    def refresh(self, snap: "Snapshot", idx: np.ndarray) -> None:
+    def refresh(self, snap: "Snapshot") -> None:
+        """Patch the totals over the pending rows.  ``contrib_fn`` reads
+        the snapshot's current columns, so one patch over their union
+        equals the chain of patches, one a delta, that it replaces."""
+        idx = np.array(sorted(set(self.pending)), dtype=np.int64)
+        self.pending.clear()
         new = np.asarray(self.contrib_fn(snap, idx), dtype=np.int64)
         np.add.at(self.totals, self.leaf_id[idx], new - self.contrib[idx])
         self.contrib[idx] = new
@@ -74,9 +84,13 @@ class Snapshot:
     (§3.4.3 snapshot memory optimization).
     """
 
-    def __init__(self, cols: StateColumns, version: int = 0) -> None:
+    def __init__(self, cols: StateColumns, version: int = 0,
+                 commit_work: Optional[List[int]] = None) -> None:
         self.cols = cols
         self.version = version
+        # The commit path's tally, shared with the state the snapshot
+        # was taken of (``ClusterState.commit_work``).
+        self.commit_work = [0, 0, 0] if commit_work is None else commit_work
         # Bumped on every row mutation folded into this snapshot.  The
         # cycle pipeline uses (id(snap), mut_count) as its optimistic-
         # concurrency fingerprint: a speculative result is reusable only
@@ -91,8 +105,8 @@ class Snapshot:
         # free/used/busy.
         self.derived: dict = {}
         # Row-patchable per-group aggregates (free/used/slot counts) —
-        # these DO depend on busy bits and are kept current by
-        # ``_refresh_rows`` patching instead of invalidation.
+        # these DO depend on busy bits and are kept current by patches
+        # at their reads (``tracked_sum``) instead of invalidation.
         self.tracked: Dict[Hashable, TrackedGroupSum] = {}
 
     # -- column views ---------------------------------------------------
@@ -155,12 +169,17 @@ class Snapshot:
                     n_groups: int,
                     contrib_fn: Callable[["Snapshot", Optional[np.ndarray]],
                                          np.ndarray]) -> np.ndarray:
-        """Get-or-create a :class:`TrackedGroupSum` and return its
-        per-group totals (int64, live view — do not mutate)."""
+        """Get-or-create a :class:`TrackedGroupSum`, patch it over the
+        rows changed since its last read, and return its per-group
+        totals (int64, live view — do not mutate, and read again after
+        the snapshot changes: a later delta patches it at that read)."""
         cache = self.tracked.get(key)
         if cache is None:
             cache = TrackedGroupSum(leaf_id, n_groups, contrib_fn, self)
             self.tracked[key] = cache
+        elif cache.pending:
+            cache.refresh(self)
+            self.commit_work[2] += 1
         return cache.totals
 
     def invalidate_caches(self) -> None:
@@ -172,10 +191,43 @@ class Snapshot:
 
     # -- placement deltas (§3.4.3) -------------------------------------
     def apply_placement(self, placement: Placement) -> None:
-        """Mark a just-committed placement's devices busy and refresh the
-        touched rows — identical to what a fresh ``take`` would see,
-        because ``ClusterState.allocate`` only flips busy bits."""
-        self._refresh_rows(write_busy(self.cols.gpu_busy, placement, True))
+        """Mark a just-committed placement's devices busy and bring the
+        touched rows up to date — identical to what a fresh ``take``
+        would see, because ``ClusterState.allocate`` only flips busy
+        bits.  A placement of ``cluster.DELTA_MAX_PODS`` pods or fewer
+        adds its counts to a row (``StateColumns.add_busy``) where this
+        snapshot agrees with the state's check of the pod: node healthy,
+        the pod's devices healthy and free here.  Other rows, and larger
+        placements, are re-derived from the bitmaps."""
+        if not delta_commit(placement):
+            idx = self._refresh_rows(
+                write_busy(self.cols.gpu_busy, placement, True))
+            self.commit_work[1] += idx.size
+            return
+        cols = self.cols
+        busy, healthy, up = cols.gpu_busy, cols.gpu_healthy, cols.node_healthy
+        counted, stale = [], set()
+        for pod in placement.pods:
+            n = pod.node
+            row, ok = busy[n], healthy[n]
+            # Checked before the pod's bits are set, so a device that an
+            # earlier pod of the placement took fails the check too.
+            if up[n] and all(ok[g] and not row[g] for g in pod.gpu_indices):
+                counted.append(pod)
+            else:
+                stale.add(n)
+            for g in pod.gpu_indices:
+                row[g] = True
+        cols.add_busy(counted)
+        rows = {p.node for p in counted}
+        if stale:
+            # add_busy's counts on a stale row are overwritten here
+            cols.refresh_derived(np.fromiter(stale, np.int64, len(stale)))
+            rows -= stale
+            self.commit_work[1] += len(stale)
+        self.commit_work[0] += len(rows)
+        self.mut_count += 1
+        self._pend(rows | stale)
 
     def apply_release(self, placement: Placement) -> None:
         """Inverse delta for a mid-cycle preemption/release."""
@@ -199,14 +251,27 @@ class Snapshot:
         self.mut_count += 1
         self.invalidate_caches()
 
-    def _refresh_rows(self, nodes: np.ndarray) -> None:
+    def _refresh_rows(self, nodes: np.ndarray) -> np.ndarray:
+        """Re-derive the rows ``nodes`` (repeats allowed) and queue them
+        on the tracked sums.  Returns the distinct rows."""
         idx = np.unique(nodes)
         if idx.size == 0:
-            return
+            return idx
         self.cols.refresh_derived(idx)
         self.mut_count += 1
-        for cache in self.tracked.values():
-            cache.refresh(self, idx)
+        self._pend(idx.tolist())
+        return idx
+
+    def _pend(self, rows: Collection[int]) -> None:
+        """Queue changed rows on every tracked sum for its next read.  A
+        sum with more rows queued than the snapshot has nodes is dropped:
+        built anew at its next read, it costs no more than the patch, and
+        one no longer read holds no growing queue."""
+        limit = self.cols.n_nodes
+        for key, cache in list(self.tracked.items()):
+            cache.pending.extend(rows)
+            if len(cache.pending) > limit:
+                del self.tracked[key]
 
 
 class FullSnapshotter:
@@ -224,7 +289,8 @@ class FullSnapshotter:
         state.refresh_all_derived()
         state.dirty_nodes.clear()  # parity with the incremental path
         state.invariants_dirty = False
-        return Snapshot(state.cols.copy(), version=self._version)
+        return Snapshot(state.cols.copy(), version=self._version,
+                        commit_work=state.commit_work)
 
 
 class IncrementalSnapshotter:
@@ -275,15 +341,14 @@ class IncrementalSnapshotter:
             # raised ``state.invariants_dirty`` — placement churn flips
             # busy bits alone.  While the flag is down, the §3.4.1 pool
             # masks + ``derived`` arrays stay valid and the ``tracked``
-            # aggregates are patched in O(dirty) instead of dropped.
+            # aggregates queue the dirty rows instead of being dropped.
             inv = bool(state.invariants_dirty)
             snap.cols.copy_rows_from(state.cols, idx, invariants=inv)
             snap.mut_count += 1
             if inv:
                 snap.invalidate_caches()
             else:
-                for cache in snap.tracked.values():
-                    cache.refresh(snap, idx)
+                snap._pend(dirty)
             self.rows_copied += len(dirty)
         state.dirty_nodes.clear()
         state.invariants_dirty = False

@@ -85,12 +85,27 @@ _SEAM_COUNTERS = (
      {"dir": "down"}),
 )
 
-#: The pods ``ClusterState.allocate`` committed, by path: tallied in
-#: ``state.commit_pods`` in plain numbers (one gang write, pod by pod)
-#: and published when the registry is collected.
-_COMMIT_COUNTER = ("kant_commit_pods_total",
-                   "pods committed to the column block, by path")
-_COMMIT_PATHS = ("batched", "per_pod")
+#: The commit path's tallies, kept on the state in plain numbers and
+#: published when the registry is collected: the attribute of
+#: ``ClusterState`` and its index, then name, help and labels.  The pods
+#: ``allocate`` committed (``commit_pods``: one gang write, pod by pod);
+#: the rows a commit updated on the state and on its snapshots, by count
+#: deltas or re-derived, and the snapshots' group-sum patches
+#: (``commit_work``).
+_COMMIT_COUNTERS = (
+    ("commit_pods", 0, "kant_commit_pods_total",
+     "pods committed to the column block, by path", {"path": "batched"}),
+    ("commit_pods", 1, "kant_commit_pods_total",
+     "pods committed to the column block, by path", {"path": "per_pod"}),
+    ("commit_work", 0, "kant_commit_rows_total",
+     "rows a commit updated on the state and its snapshots, by path",
+     {"path": "delta"}),
+    ("commit_work", 1, "kant_commit_rows_total",
+     "rows a commit updated on the state and its snapshots, by path",
+     {"path": "rederive"}),
+    ("commit_work", 2, "kant_group_sum_patches_total",
+     "per-group sums patched when read", {}),
+)
 
 #: The placement passes RSCH ran, by pool (``zone``, ``general`` or
 #: ``all``) and whether the pass placed the job: tallied per pass in
@@ -330,15 +345,17 @@ class Telemetry:
         if self.registry is not None:
             lbl = self._labels(scope)
             # What the state had committed before it was attached.
-            committed = list(sim.state.commit_pods)
+            committed = [getattr(sim.state, attr)[i]
+                         for attr, i, *_ in _COMMIT_COUNTERS]
 
             def collect(reg, sim=sim, lbl=lbl, committed=committed):
-                tally = sim.state.commit_pods
-                for i, path in enumerate(_COMMIT_PATHS):
-                    if tally[i] != committed[i]:
-                        reg.counter(*_COMMIT_COUNTER).inc(
-                            tally[i] - committed[i], path=path, **lbl)
-                        committed[i] = tally[i]
+                for j, (attr, i, name, help_, labels) in enumerate(
+                        _COMMIT_COUNTERS):
+                    value = getattr(sim.state, attr)[i]
+                    if value != committed[j]:
+                        reg.counter(name, help_).inc(
+                            value - committed[j], **labels, **lbl)
+                        committed[j] = value
                 eng = getattr(sim, "_engine", None)
                 if eng is not None:
                     for k, v in eng.summary.as_dict().items():

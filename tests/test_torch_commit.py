@@ -88,8 +88,11 @@ def observe(state, snap=None):
     if snap is not None:
         seen["snap_cols"] = {f.name: getattr(snap.cols, f.name).tolist()
                              for f in dataclasses.fields(snap.cols)}
-        seen["tracked"] = {k: (c.totals.tolist(), c.contrib.tolist())
-                           for k, c in snap.tracked.items()}
+        # through the read path, which patches a sum over its pending rows
+        seen["tracked"] = {
+            k: (snap.tracked_sum(k, c.leaf_id, len(c.totals),
+                                 c.contrib_fn).tolist(), c.contrib.tolist())
+            for k, c in list(snap.tracked.items())}
         seen["mut_count"] = snap.mut_count
     return seen
 

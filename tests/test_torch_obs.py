@@ -61,11 +61,14 @@ PORT = types.SimpleNamespace(core=TC, obs=TO, report=TO_report, serve=TS,
 WALL_FAMILIES = ("kant_cycle_seconds",)
 PROCESS_FAMILIES = ("combo_cache_",)
 #: Families only the port registers: pods bound, the score seam's
-#: passes, rows and bytes, the pods committed by each path, and RSCH's
+#: passes, rows and bytes, the pods committed by each path, the rows a
+#: commit updated by each path, the group sums patched, and RSCH's
 #: placement passes.
 PORT_FAMILIES = ("kant_pods_bound_total", "kant_seam_calls_total",
                  "kant_seam_rows_total", "kant_seam_bytes_total",
-                 "kant_commit_pods_total", "kant_placement_passes_total")
+                 "kant_commit_pods_total", "kant_commit_rows_total",
+                 "kant_group_sum_patches_total",
+                 "kant_placement_passes_total")
 DROPPED = WALL_FAMILIES + PROCESS_FAMILIES + PORT_FAMILIES
 #: Spans only the port records on the scheduler lane, and their args.
 PORT_SPANS = {"admit", "schedule", "pass-zone", "pass-general", "pass-all",
@@ -1090,6 +1093,44 @@ def test_commit_counter_splits_bound_pods_by_path():
     assert commit.value(path="per_pod") == 12
     assert (commit.value(path="batched") + commit.value(path="per_pod")
             == reg.counter("kant_pods_bound_total").value())
+
+
+def test_commit_row_and_patch_counters(monkeypatch):
+    """Attached, ``kant_commit_rows_total`` counts the rows of one-pod
+    commits, on the state and on the snapshot, under ``path="delta"``
+    and those of gangs above ``cluster.DELTA_MAX_PODS`` pods under
+    ``path="rederive"``; ``kant_group_sum_patches_total`` counts every
+    patch of a tracked group sum."""
+    gang = max(8, TC.cluster.DELTA_MAX_PODS + 1)
+    assert TC.cluster.DELTA_MAX_PODS >= 1
+    patches = []
+    refresh = TC.snapshot.TrackedGroupSum.refresh
+
+    def counted(self, snap):
+        patches.append(1)
+        return refresh(self, snap)
+
+    monkeypatch.setattr(TC.snapshot.TrackedGroupSum, "refresh", counted)
+    jobs = ([_gang(PORT, uid=i, pods=gang, gpg=2, submit_time=60.0 * i,
+                   duration=900.0) for i in range(1, 5)]
+            + [_gang(PORT, uid=i, pods=1, gpg=2, submit_time=20.0 * i,
+                     duration=600.0) for i in range(5, 17)])
+    tel = TO.Telemetry(audit=False)
+    _, result = _run_sim(PORT, jobs, telemetry=tel)
+    bound = [j for j in result.jobs if j.start_time is not None]
+    assert len(bound) == len(jobs) and result.preemptions == 0
+    gang_rows = sum(len({p.node for p in j.placement.pods})
+                    for j in bound if j.n_pods == gang)
+    reg = tel.registry
+    reg.collect()
+    rows = reg.counter("kant_commit_rows_total")
+    assert sorted(ls["path"] for ls in rows.label_sets()) == [
+        "delta", "rederive"]
+    # one row a one-pod job, once on the state and once on the snapshot
+    assert rows.value(path="delta") == 2 * 12
+    assert rows.value(path="rederive") == 2 * gang_rows
+    assert 0 < len(patches) == reg.counter(
+        "kant_group_sum_patches_total").value()
 
 
 def _service_sim(telemetry=None, detach=False):
