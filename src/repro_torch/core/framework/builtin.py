@@ -22,7 +22,7 @@ from ..snapshot import Snapshot
 from .api import (AdmitPlugin, CycleContext, FilterPlugin, PermitPlugin,
                   PlacementPass, PlanFn, PostBindPlugin, PreemptPlugin,
                   ProfileSet, QueuePolicyPlugin, QueueSortPlugin,
-                  ReservePlugin, SchedulingProfile, ScorePlugin,
+                  ReservePlugin, SchedulingProfile, ScorePlugin, obs_span,
                   single_pass_plan)
 from .registry import register
 
@@ -284,7 +284,14 @@ class BestEffortFIFOPolicy(QueuePolicyPlugin):
 class BackfillPolicy(QueuePolicyPlugin):
     """Backfill: smaller jobs run behind a blocked head; after
     ``head_timeout`` seconds the head preempts them (via the
-    BackfillHeadTimeout Preempt plugin)."""
+    BackfillHeadTimeout Preempt plugin).
+
+    With telemetry attached, the Preempt plugin's run is the
+    ``head-timeout`` span and a ``kant_head_timeouts_total`` tally, and
+    the pass over the jobs behind a blocked head is the ``backfill`` span,
+    each try tallied in ``kant_backfill_attempts_total`` by its outcome:
+    ``bound``, ``admit`` (turned away by admission) or ``placement``
+    (admitted and not bound)."""
 
     name = "Backfill"
 
@@ -295,6 +302,8 @@ class BackfillPolicy(QueuePolicyPlugin):
 
     def run_cycle(self, queue: List[Job], ctx: CycleContext) -> None:
         sched = ctx.sched
+        obs = sched.obs
+        result = ctx.result
         head = queue[0]
         if sched.try_place(head, ctx):
             sched.head_blocked_since.pop(head.uid, None)
@@ -306,21 +315,35 @@ class BackfillPolicy(QueuePolicyPlugin):
                 # record names this plugin and its beneficiary.
                 sched._preempt_source = (self.preempt.name, head.uid)
                 try:
-                    self.preempt.execute(head, ctx)
+                    with obs_span(obs, "head-timeout"):
+                        self.preempt.execute(head, ctx)
                 finally:
                     sched._preempt_source = None
+                if obs is not None:
+                    obs.head_timeout()
                 if sched.try_place(head, ctx):
                     sched.head_blocked_since.pop(head.uid, None)
                 else:
-                    ctx.result.blocked_head = head
+                    result.blocked_head = head
             else:
-                ctx.result.blocked_head = head
+                result.blocked_head = head
         # Backfill pass: later jobs may use idle resources now.
-        for job in queue[1:]:
-            if job.state is not JobState.PENDING:
-                continue
-            sched.try_place(job, ctx,
-                            backfilled=ctx.result.blocked_head is not None)
+        blocked = result.blocked_head is not None
+        tally = obs if blocked and len(queue) > 1 else None
+        with obs_span(tally, "backfill"):
+            for job in queue[1:]:
+                if job.state is not JobState.PENDING:
+                    continue
+                if tally is None:
+                    sched.try_place(job, ctx, backfilled=blocked)
+                    continue
+                turned = result.admit_rejected + result.infeasible
+                if sched.try_place(job, ctx, backfilled=True):
+                    tally.backfill_try("bound")
+                elif result.admit_rejected + result.infeasible > turned:
+                    tally.backfill_try("admit")
+                else:
+                    tally.backfill_try("placement")
 
 
 # ----------------------------------------------------------------------

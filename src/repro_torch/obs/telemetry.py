@@ -36,7 +36,9 @@ does scheduling CPU go" means).  See :mod:`repro_torch.obs.trace`.
 Spans: every span (the cycle, its pipeline phases, and the program's
 other spans: ``admit``, ``schedule``, ``pass-zone``, ``pass-general``
 and ``pass-all`` (the passes of a plan of more than one), ``level1``,
-``devices``, ``seam`` and its parts, ``event``, ``loop``, ``end``,
+``devices``, ``seam`` and its parts, ``backfill`` (Backfill's pass
+over the jobs behind a blocked head), ``head-timeout`` (a head past its
+timeout running its Preempt plugin), ``event``, ``loop``, ``end``,
 ``gc``) records its start
 and end on ``time.perf_counter_ns`` and nests under the span open when
 it began.  Closing a span adds its time to its parent's children, so
@@ -107,11 +109,21 @@ _COMMIT_COUNTERS = (
      "per-group sums patched when read", {}),
 )
 
-#: The placement passes RSCH ran, by pool (``zone``, ``general`` or
-#: ``all``) and whether the pass placed the job: tallied per pass in
-#: plain numbers and published when the registry is collected.
-_PASS_COUNTER = ("kant_placement_passes_total",
-                 "placement passes run, by pool and outcome")
+#: Counters tallied in plain numbers where they happen and published
+#: when the registry is collected, with their help: the placement passes
+#: RSCH ran, by pool (``zone``, ``general`` or ``all``) and whether the
+#: pass placed the job; Backfill's tries of the jobs behind a blocked
+#: head, by outcome (``bound``, ``admit``: turned away by admission,
+#: ``placement``: admitted and not bound); the cycles in which a head
+#: past its timeout ran its Preempt plugin.
+_TALLIED = {
+    "kant_placement_passes_total":
+        "placement passes run, by pool and outcome",
+    "kant_backfill_attempts_total":
+        "tries of a job behind a blocked head, by outcome",
+    "kant_head_timeouts_total":
+        "cycles in which a head past its timeout ran its Preempt plugin",
+}
 
 #: Telemetries whose spans receive the process's garbage collections.
 _GC_LISTENERS: "weakref.WeakSet" = weakref.WeakSet()
@@ -248,6 +260,12 @@ class _ScopedTelemetry:
     def pass_done(self, pool: str, placed: bool) -> None:
         self._tel.pass_done(pool, placed, scope=self._scope)
 
+    def backfill_try(self, outcome: str) -> None:
+        self._tel.backfill_try(outcome, scope=self._scope)
+
+    def head_timeout(self) -> None:
+        self._tel.head_timeout(scope=self._scope)
+
     def on_sample(self, sample) -> None:
         self._tel.on_sample(sample, scope=self._scope)
 
@@ -309,17 +327,17 @@ class Telemetry:
         # has of them.
         self._seam = [0] * len(_SEAM_COUNTERS)
         self._seam_published = list(self._seam)
-        # RSCH's passes, (scope, pool, placed) -> count, and what the
-        # registry has of them.
-        self._passes: Dict[tuple, int] = {}
-        self._passes_published: Dict[tuple, int] = {}
+        # The ``_TALLIED`` counters, (name, scope, labels) -> count, and
+        # what the registry has of them.
+        self._tallies: Dict[tuple, int] = {}
+        self._tallies_published: Dict[tuple, int] = {}
         self.jobs: Dict[tuple, JobRecord] = {}
         self.event_counts: Dict[str, int] = {}
         self._attached: List = []
         if self.registry is not None:
             self.registry.add_collector(self._collect_combo_caches)
             self.registry.add_collector(self._collect_seam)
-            self.registry.add_collector(self._collect_passes)
+            self.registry.add_collector(self._collect_tallies)
 
     # -- wiring --------------------------------------------------------
     @property
@@ -525,22 +543,38 @@ class Telemetry:
                 reg.counter(name, help).inc(total - done, **labels)
         self._seam_published = list(self._seam)
 
-    # -- RSCH's placement passes (core/rsch.py::_schedule) --------------
+    # -- tallied counters (``_TALLIED``) ---------------------------------
+    def _tally(self, name: str, scope: Optional[str], labels: tuple) -> None:
+        key = (name, scope, labels)
+        self._tallies[key] = self._tallies.get(key, 0) + 1
+
     def pass_done(self, pool: str, placed: bool,
                   scope: Optional[str] = None) -> None:
-        """Tally a finished pass of a placement plan."""
-        key = (scope, pool, placed)
-        self._passes[key] = self._passes.get(key, 0) + 1
+        """Tally a finished pass of a placement plan
+        (``core/rsch.py::_schedule``)."""
+        self._tally("kant_placement_passes_total", scope,
+                    (("pool", pool), ("placed", str(placed).lower())))
 
-    def _collect_passes(self, reg) -> None:
-        for key, total in self._passes.items():
-            done = self._passes_published.get(key, 0)
+    def backfill_try(self, outcome: str,
+                     scope: Optional[str] = None) -> None:
+        """Tally Backfill's try of a job behind a blocked head
+        (``core/framework/builtin.py::BackfillPolicy``)."""
+        self._tally("kant_backfill_attempts_total", scope,
+                    (("outcome", outcome),))
+
+    def head_timeout(self, scope: Optional[str] = None) -> None:
+        """Tally a cycle in which a head past its timeout ran its
+        Preempt plugin."""
+        self._tally("kant_head_timeouts_total", scope, ())
+
+    def _collect_tallies(self, reg) -> None:
+        for key, total in self._tallies.items():
+            done = self._tallies_published.get(key, 0)
             if total != done:
-                scope, pool, placed = key
-                reg.counter(*_PASS_COUNTER).inc(
-                    total - done, pool=pool, placed=str(placed).lower(),
-                    **self._labels(scope))
-                self._passes_published[key] = total
+                name, scope, labels = key
+                reg.counter(name, _TALLIED[name]).inc(
+                    total - done, **dict(labels), **self._labels(scope))
+                self._tallies_published[key] = total
 
     def _phase_done(self, scope: Optional[str], name: str,
                     dt: float) -> None:

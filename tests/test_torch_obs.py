@@ -26,6 +26,7 @@ their true times with their self times, a collection as a span, and the
 hooks that ``detach`` and the run's end take away.
 """
 
+import collections
 import dataclasses
 import gc
 import json
@@ -63,17 +64,20 @@ PROCESS_FAMILIES = ("combo_cache_",)
 #: Families only the port registers: pods bound, the score seam's
 #: passes, rows and bytes, the pods committed by each path, the rows a
 #: commit updated by each path, the group sums patched, and RSCH's
-#: placement passes.
+#: placement passes, Backfill's tries behind a blocked head and the head
+#: timeouts.
 PORT_FAMILIES = ("kant_pods_bound_total", "kant_seam_calls_total",
                  "kant_seam_rows_total", "kant_seam_bytes_total",
                  "kant_commit_pods_total", "kant_commit_rows_total",
                  "kant_group_sum_patches_total",
-                 "kant_placement_passes_total")
+                 "kant_placement_passes_total",
+                 "kant_backfill_attempts_total", "kant_head_timeouts_total")
 DROPPED = WALL_FAMILIES + PROCESS_FAMILIES + PORT_FAMILIES
 #: Spans only the port records on the scheduler lane, and their args.
 PORT_SPANS = {"admit", "schedule", "pass-zone", "pass-general", "pass-all",
               "level1", "devices", "seam", "seam-pack", "seam-launch",
-              "seam-wait", "event", "loop", "end", "gc"}
+              "seam-wait", "backfill", "head-timeout", "event", "loop",
+              "end", "gc"}
 PORT_SPAN_ARGS = {"cycle", "uid", "kind", "generation"}
 
 
@@ -1205,3 +1209,97 @@ def test_detached_passes_record_no_span_and_place_alike():
     tel.registry.collect()
     assert not tel.span_count and not tel.tracer.wall
     assert "kant_placement_passes_total" not in tel.registry.names()
+
+
+def _backlog_sim(telemetry=None, detach=False, one_job=False):
+    """A blocked head with a backlog behind it on a 32-node cluster: a
+    20-node gang holds the cluster from t = 0; at t = 30 a 16-node gang
+    becomes the head and waits for it; from t = 60 twelve 4-GPU jobs are
+    backfilled behind it and two 12-node gangs are turned away by
+    admission; the head passes its 120-s timeout at t = 150.
+    ``one_job`` leaves the head alone in the queue.  Returns each job's
+    placement and every try of a job behind a blocked head, by what
+    became of the job."""
+    C = TC
+    topo = C.small_topology(n_nodes=32, gpus_per_node=8, nodes_per_leaf=4)
+    state = C.ClusterState.create(topo)
+    qsch = C.QSCH(C.QuotaManager({"t0": {0: 10**6}}),
+                  C.RSCH(topo, rsch_config(PORT)),
+                  C.QSCHConfig(policy=C.QueuePolicy.BACKFILL,
+                               backfill_head_timeout=120.0))
+    sim = C.Simulator(state, qsch, C.SimConfig(horizon=1800.0))
+    tries = collections.Counter()
+    try_place = qsch.try_place
+
+    def observed(job, ctx, backfilled=False):
+        requeues = job.requeue_count
+        placed = try_place(job, ctx, backfilled)
+        if backfilled:
+            tries["bound" if placed else "admit"
+                  if job.requeue_count == requeues else "placement"] += 1
+        return placed
+
+    qsch.try_place = observed
+    if telemetry is not None:
+        telemetry.attach(sim)
+        if detach:
+            telemetry.detach(sim)
+    jobs = [_gang(PORT, uid=1, pods=20, submit_time=0.0, duration=900.0),
+            _gang(PORT, uid=2, pods=16, submit_time=30.0, duration=300.0)]
+    if not one_job:
+        jobs += [_gang(PORT, uid=i, pods=1, gpg=4, submit_time=60.0,
+                       duration=600.0) for i in range(3, 15)]
+        jobs += [_gang(PORT, uid=i, pods=12, submit_time=60.0,
+                       duration=300.0) for i in (15, 16)]
+    result = sim.run(jobs)
+    return ({j.uid: [(p.node, tuple(p.gpu_indices)) for p in j.placement.pods]
+             if j.placement is not None else None for j in result.jobs},
+            tries)
+
+
+def test_backfill_counters_and_spans_on_a_blocked_head():
+    """Attached, ``kant_backfill_attempts_total{outcome}`` counts every
+    try of a job behind a blocked head by what became of it, the
+    ``backfill`` spans lie under their cycles, and each cycle in which
+    the head past its timeout ran its Preempt plugin is one
+    ``head-timeout`` span and one ``kant_head_timeouts_total``."""
+    tel = TO.Telemetry(audit=False)
+    _, tries = _backlog_sim(tel)
+    assert tries["bound"] >= 12 and tries["admit"] > 0
+    reg = tel.registry
+    reg.collect()
+    attempts = reg.counter("kant_backfill_attempts_total")
+    got = {ls["outcome"]: attempts.value(**ls)
+           for ls in attempts.label_sets()}
+    assert got == {k: v for k, v in tries.items() if v}
+    timeouts = reg.counter("kant_head_timeouts_total").value()
+    assert timeouts > 0
+    assert tel.span_count["head-timeout"] == timeouts
+    assert tel.span_count["backfill"] > 0
+    for n in _wall_tree(tel.tracer):
+        if n["name"] in ("backfill", "head-timeout"):
+            assert n["parent"]["name"] == "cycle"
+
+
+def test_backfill_places_alike_attached_and_detached():
+    """The backlog places every job alike detached, attached, and
+    attached then detached; detached, no span and no tally is made."""
+    plain, _ = _backlog_sim()
+    assert plain[2] is not None and all(plain[i] for i in range(3, 15))
+    assert _backlog_sim(TO.Telemetry(audit=False))[0] == plain
+    tel = TO.Telemetry(audit=False)
+    assert _backlog_sim(tel, detach=True)[0] == plain
+    tel.registry.collect()
+    assert not tel.span_count and not tel.tracer.wall
+    assert "kant_backfill_attempts_total" not in tel.registry.names()
+
+
+def test_no_backfill_span_on_a_one_job_queue():
+    """A head alone in the queue, blocked, opens no ``backfill`` span and
+    tallies no try."""
+    tel = TO.Telemetry(audit=False)
+    placed, tries = _backlog_sim(tel, one_job=True)
+    assert placed[2] is not None and not tries
+    assert "backfill" not in tel.span_count
+    tel.registry.collect()
+    assert "kant_backfill_attempts_total" not in tel.registry.names()
